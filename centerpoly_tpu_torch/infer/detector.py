@@ -1,0 +1,268 @@
+"""Inference detector API.
+
+Behavioral reference: src/lib/detectors/base_detector.py:18-191 and
+detectors/polydet.py:21-101, as the JAX package serves it: `run(image)`
+returns {'results': {class_id: (n, D) arrays}, 'tot'/'load'/'pre'/'net'/
+'dec'/'post'/'merge': seconds}; polydet rows are [x0, y0, x1, y1, score,
+poly..., depth] in source-image coordinates.
+
+On the device: the axis-aligned affine warp + normalisation of the full
+frame, the model, sigmoid, optional flip average and the top-K decode.
+On the host: the inverse affine back to source coordinates and the merge.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping
+
+import numpy as np
+import torch
+
+from ..configs import Config
+from ..geometry.affine import get_affine_transform, warp_axis_aligned
+from ..models import create_model
+from ..ops.decode import polydet_decode
+from ..ops.nms import soft_nms
+from ..utils.timers import StageTimer
+from ..weights import load_reference_checkpoint, load_weights, \
+    state_dict_from_jax
+
+
+def polydet_post_process(dets: np.ndarray, c, s, out_h: int, out_w: int,
+                         num_classes: int) -> List[Dict[int, list]]:
+    """Map decoded detections (B, K, 6+2N+1) back to source-image coords,
+    split per class (ref post_process.py:105-122, vectorized)."""
+    ret = []
+    for i in range(dets.shape[0]):
+        trans = get_affine_transform(c[i], s[i], 0, (out_w, out_h), inv=True)
+        d = dets[i].copy()
+        pts = d[:, :4].reshape(-1, 2)
+        d[:, :4] = (pts @ trans[:, :2].T + trans[:, 2]).reshape(-1, 4)
+        poly = d[:, 6:-1].reshape(-1, 2)
+        d[:, 6:-1] = (poly @ trans[:, :2].T + trans[:, 2]).reshape(
+            d.shape[0], -1)
+        classes = d[:, 5]
+        top: Dict[int, list] = {}
+        for j in range(num_classes):
+            inds = classes == j
+            top[j + 1] = np.concatenate(
+                [d[inds, :4], d[inds, 4:5], d[inds, 6:]], axis=1
+            ).astype(np.float32).tolist()
+        ret.append(top)
+    return ret
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller names another device; no silent CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                               "port on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class BaseDetector:
+    """Shared run loop: pre-process -> device program -> post -> merge,
+    with the reference's 7-stage timing (base_detector.py:105-191)."""
+
+    def __init__(self, cfg: Config, variables=None, rng_seed: int = 0,
+                 device=None):
+        """`variables`: a state_dict of this package, or the JAX package's
+        {"params", "batch_stats"} tree; else cfg.load_model (a reference
+        .pth); else random weights from `rng_seed`."""
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        # bf16 only on the card; the CPU path is the f32 reference
+        self.dtype = (torch.bfloat16 if cfg.mixed_precision
+                      and self.device.type == "cuda" else torch.float32)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(rng_seed)
+            model = create_model(cfg.arch, cfg.heads, cfg.head_conv,
+                                 dcn_kernel=cfg.dcn_kernel)
+        if variables is None and cfg.load_model:
+            report = load_weights(model, load_reference_checkpoint(
+                cfg.load_model))
+            print(f"loaded {cfg.load_model}: {len(report['loaded'])} loaded, "
+                  f"{len(report['skipped'])} skipped, "
+                  f"{len(report['missing'])} missing")
+        elif variables is not None:
+            if "params" in variables:
+                variables = state_dict_from_jax(variables, cfg.arch)
+            load_weights(model, variables, strict=True)
+        self.model = model.to(self.device, self.dtype,
+                              memory_format=torch.channels_last).eval()
+        self.mean = torch.tensor(cfg.mean, dtype=torch.float32,
+                                 device=self.device)
+        self.std = torch.tensor(cfg.std, dtype=torch.float32,
+                                device=self.device)
+        self.num_classes = cfg.num_classes
+        self.max_per_image = cfg.K
+        self.scales = cfg.test_scales
+
+    # -- device programs -------------------------------------------------
+
+    def _pre_device(self, frames_u8: torch.Tensor, trans, size) -> torch.Tensor:
+        """uint8 (B, H, W, 3) frames -> normalized (B[*2], 3, inp_h, inp_w)
+        network input in the model's dtype and memory format."""
+        x = torch.stack([warp_axis_aligned(f.float(), trans, size)
+                         for f in frames_u8])
+        x = ((x / 255.0 - self.mean) / self.std).permute(0, 3, 1, 2)
+        if self.cfg.flip_test:
+            x = torch.cat([x, x.flip(3)])
+        return x.to(self.dtype, memory_format=torch.channels_last)
+
+    def _heads(self, images):
+        return self.model(images)[-1]
+
+    def _process_device(self, images):
+        raise NotImplementedError
+
+    # -- host orchestration ---------------------------------------------
+
+    def pre_process_meta(self, height: int, width: int, scale: float):
+        """The affine + meta of ref base_detector:41-88."""
+        cfg = self.cfg
+        new_h, new_w = int(height * scale), int(width * scale)
+        if cfg.fix_res:
+            inp_h, inp_w = cfg.input_h, cfg.input_w
+            c = np.array([new_w / 2.0, new_h / 2.0], dtype=np.float32)
+            s = max(height, width) * 1.0
+        else:
+            inp_h = (new_h | cfg.pad) + 1
+            inp_w = (new_w | cfg.pad) + 1
+            c = np.array([new_w // 2, new_h // 2], dtype=np.float32)
+            s = np.array([inp_w, inp_h], dtype=np.float32)
+        trans = get_affine_transform(c, s, 0, (inp_w, inp_h))
+        meta = {"c": c, "s": s,
+                "inp_h": inp_h, "inp_w": inp_w,
+                "out_height": inp_h // cfg.down_ratio,
+                "out_width": inp_w // cfg.down_ratio}
+        return trans, meta
+
+    def _scaled_trans(self, h: int, w: int, scale: float):
+        """pre_process_meta's transform is defined on SCALED-image coords
+        (the reference resizes by `scale` first, base_detector.py:41-60);
+        folding the scale into the matrix makes one warp of the original
+        frame geometrically identical to its resize + warp."""
+        trans, meta = self.pre_process_meta(h, w, scale)
+        if scale != 1.0:
+            trans = trans.copy()
+            trans[:, :2] *= scale
+        return trans, meta
+
+    def _post(self, dets_host: np.ndarray, meta, scale: float):
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def run(self, image: np.ndarray) -> Dict:
+        """Full pipeline on one HWC uint8 image.  Returns results + the
+        reference's 7-stage timing dict."""
+        timer = StageTimer().start()
+        image = np.asarray(image)
+        frame = torch.from_numpy(image).to(self.device)[None]
+        timer.stage("load", fence=frame)
+
+        detections = []
+        for scale in self.scales:
+            trans, meta = self._scaled_trans(*image.shape[:2], scale)
+            images = self._pre_device(frame, trans,
+                                      (meta["inp_h"], meta["inp_w"]))
+            timer.stage("pre", fence=images)
+            dets = self._process_device(images)
+            timer.stage("net", fence=dets)
+            dets_host = dets.cpu().numpy()
+            timer.stage("dec")
+            detections.append(self._post(dets_host, meta, scale))
+            timer.stage("post")
+
+        results = self.merge_outputs(detections)
+        timer.stage("merge")
+        times = timer.times
+        return {"results": results, "tot": sum(times.values()),
+                **{k: times.get(k, 0.0) for k in
+                   ("load", "pre", "net", "dec", "post", "merge")}}
+
+    @torch.no_grad()
+    def run_batch(self, images) -> list:
+        """Batched pipeline: one forward per scale over the whole stack of
+        same-shaped frames (flip TTA as [originals(B); flipped(B)]).
+        Returns a list of {"results": ...} dicts (no stage timers)."""
+        frames = torch.from_numpy(np.stack([np.asarray(im) for im in images])
+                                  ).to(self.device)
+        h, w = frames.shape[1:3]
+        per_scale = []
+        for scale in self.scales:
+            trans, meta = self._scaled_trans(h, w, scale)
+            x = self._pre_device(frames, trans, (meta["inp_h"], meta["inp_w"]))
+            dets_host = self._process_device(x).cpu().numpy()
+            per_scale.append([self._post(dets_host[i:i + 1], meta, scale)
+                              for i in range(len(images))])
+        return [{"results": self.merge_outputs(
+                    [dets_i[i] for dets_i in per_scale])}
+                for i in range(len(images))]
+
+    def merge_outputs(self, detections):
+        """Concat scales + optional soft-NMS + global top-K score cut
+        (ref detectors/polydet.py:62-76)."""
+        results = {}
+        for j in range(1, self.num_classes + 1):
+            results[j] = np.concatenate(
+                [d[j] for d in detections], axis=0).astype(np.float32)
+            if len(self.scales) > 1 or self.cfg.nms:
+                soft_nms(results[j], nt=0.5, method=2)
+        scores = np.hstack(
+            [results[j][:, 4] for j in range(1, self.num_classes + 1)])
+        if len(scores) > self.max_per_image:
+            kth = len(scores) - self.max_per_image
+            thresh = np.partition(scores, kth)[kth]
+            for j in range(1, self.num_classes + 1):
+                keep = results[j][:, 4] >= thresh
+                results[j] = results[j][keep]
+        return results
+
+
+class PolydetDetector(BaseDetector):
+    """Polygon instance detector (ref detectors/polydet.py)."""
+
+    def _process_device(self, images):
+        cfg = self.cfg
+        out = {k: v.float().permute(0, 2, 3, 1)
+               for k, v in self._heads(images).items()}   # NHWC views
+        hm = torch.sigmoid(out["hm"])
+        poly = out["poly"]
+        depth = out["pseudo_depth"]
+        reg = out["reg"] if cfg.reg_offset else None
+        if cfg.flip_test:
+            # average original + x-flipped heatmap/depth; polygons are not
+            # flip-symmetric per channel, keep the unflipped branch
+            nb = hm.shape[0] // 2
+            hm = (hm[:nb] + hm[nb:].flip(2)) / 2
+            depth = (depth[:nb] + depth[nb:].flip(2)) / 2
+            poly = poly[:nb]
+            reg = reg[:nb] if reg is not None else None
+        return polydet_decode(hm, poly, depth, reg=reg, k=cfg.K, rep=cfg.rep)
+
+    def _post(self, dets_host, meta, scale):
+        d0 = polydet_post_process(
+            dets_host[:1], [meta["c"]], [meta["s"]],
+            meta["out_height"], meta["out_width"], self.num_classes)[0]
+        length = 5 + 2 * self.cfg.nbr_points + 1
+        for j in range(1, self.num_classes + 1):
+            d0[j] = np.array(d0[j], dtype=np.float32).reshape(-1, length)
+            d0[j][:, :4] /= scale
+            d0[j][:, 5:-1] /= scale
+        return d0
+
+
+DETECTORS = {"polydet": PolydetDetector}
+
+
+def create_detector(cfg: Config, variables: Mapping | None = None,
+                    device=None) -> BaseDetector:
+    """detector_factory equivalent (ref detectors/detector_factory.py).
+    Runs on the card unless `device` names another (e.g. "cpu")."""
+    cls = DETECTORS.get(cfg.task)
+    if cls is None:
+        raise NotImplementedError(
+            f"task {cfg.task!r} is not ported yet (ROADMAP.md queue A item 9)")
+    return cls(cfg, variables=variables, device=device)

@@ -1,0 +1,61 @@
+"""Shared building blocks (NCHW), named as the reference's torch modules.
+
+Conv + BatchNorm + ReLU blocks and the DLA basic residual block
+(reference pose_dla_dcn.py:26-63), so a reference state_dict loads with
+no renaming.  Convolutions keep the symmetric torch padding
+`pad = dilation * (k // 2)`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class ConvBN(nn.Sequential):
+    """Conv -> BatchNorm -> optional ReLU, children named 0 / 1 / 2 like
+    the reference's `nn.Sequential(conv, bn, relu)` blocks."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
+                 stride: int = 1, dilation: int = 1, relu: bool = True):
+        pad = dilation * (kernel // 2)
+        layers = [nn.Conv2d(in_channels, out_channels, kernel, stride, pad,
+                            dilation, bias=False),
+                  nn.BatchNorm2d(out_channels)]
+        if relu:
+            layers.append(nn.ReLU(inplace=True))
+        super().__init__(*layers)
+
+
+class Residual(nn.Module):
+    """Basic 3x3-3x3 residual block (reference BasicBlock): conv1/bn1,
+    conv2/bn2; the caller may pass the residual branch."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, stride,
+                               dilation, dilation, bias=False)
+        self.bn1 = nn.BatchNorm2d(out_channels)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, 1, dilation,
+                               dilation, bias=False)
+        self.bn2 = nn.BatchNorm2d(out_channels)
+
+    def forward(self, x, residual=None):
+        if residual is None:
+            residual = x
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return torch.relu(out + residual)
+
+
+def bilinear_upsample_kernel(size: int) -> np.ndarray:
+    """1-channel bilinear kernel used to init grouped transposed convs
+    (ref pose_dla_dcn.py:335-344)."""
+    f = int(np.ceil(size / 2))
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    w = np.zeros((size, size), dtype=np.float32)
+    for i in range(size):
+        for j in range(size):
+            w[i, j] = (1 - abs(i / f - c)) * (1 - abs(j / f - c))
+    return w

@@ -1,0 +1,128 @@
+"""The inference slice as a whole: the PyTorch port's detector against the
+JAX package's, on one seeded uint8 frame and one set of random weights.
+
+Input 64x128 (from a 128x256 frame), head_conv 32, K=16, f32 on the CPU.
+The JAX detector's host pre-shrink (cv2) is replaced by the identity so
+both sides warp the same full frame.  Per-class detections must agree to
+1e-3 in score and 1e-2 px in source-image coordinates (the head maps agree
+to ~1e-5; coordinates are scaled 8x from the output grid).
+"""
+import numpy as np
+import pytest
+import torch
+
+from torch_port_common import HEADS, jax_dla_variables
+
+from centerpoly_tpu.configs import Config as JaxConfig
+from centerpoly_tpu.infer import detector as jdet
+from centerpoly_tpu_torch.configs import Config
+from centerpoly_tpu_torch.infer import demo
+from centerpoly_tpu_torch.infer.detector import create_detector
+from centerpoly_tpu_torch.kernels import dcn
+
+KW = dict(input_h=64, input_w=128, head_conv=32, K=16, mixed_precision=False)
+
+
+@pytest.fixture(scope="module")
+def variables():
+    # offsets of up to ~15 px, some past the rowband:6 band; seed 8 leaves
+    # no two of the top-K scores closer than 4e-4
+    return jax_dla_variables(HEADS, 32, 64, 128, seed=8)[1]
+
+
+@pytest.fixture
+def jax_env(monkeypatch):
+    """The JAX Config writes CENTERPOLY_PALLAS_DCN into os.environ; start
+    unset and hand the variable back unset so no later test sees it."""
+    monkeypatch.delenv("CENTERPOLY_PALLAS_DCN", raising=False)
+    monkeypatch.setattr(jdet.BaseDetector, "_shrink_for_send",
+                        lambda self, image, trans, h, w: (image, trans))
+    yield
+    JaxConfig(**KW)  # dcn_kernel auto: restores the variable's prior value
+
+
+def _frame(seed=11):
+    return np.random.RandomState(seed).randint(0, 256, (128, 256, 3),
+                                               dtype=np.uint8)
+
+
+@pytest.mark.parametrize("mode", ["rowband:6", "off"])
+def test_run_matches_jax(jax_env, variables, mode):
+    frame = _frame()
+    ref = jdet.create_detector(JaxConfig(dcn_kernel=mode, **KW),
+                               variables).run(frame)
+    port = create_detector(Config(dcn_kernel=mode, **KW), variables,
+                           device="cpu")
+    got = port.run(frame)
+    assert set(got) == set(ref)
+    n = 0
+    for j in range(1, 9):
+        g = np.asarray(got["results"][j])
+        r = np.asarray(ref["results"][j])
+        assert g.shape == r.shape, j
+        n += len(r)
+        np.testing.assert_allclose(g[:, 4], r[:, 4], rtol=0, atol=1e-3)
+        coords = [i for i in range(g.shape[1]) if i != 4 and i != g.shape[1] - 1]
+        np.testing.assert_allclose(g[:, coords], r[:, coords], rtol=0,
+                                   atol=1e-2)
+        np.testing.assert_allclose(g[:, -1], r[:, -1], rtol=0, atol=1e-3)
+    assert n == 16
+    # the batch path gives the same detections as run(), within the same
+    # bounds (a batch of 2 sums its convolutions in another order)
+    batch = port.run_batch([frame, _frame(12)])
+    for j in range(1, 9):
+        np.testing.assert_allclose(batch[0]["results"][j],
+                                   got["results"][j], rtol=0, atol=1e-2)
+
+
+def test_no_card_raises_without_cpu_request():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cpu"):
+        create_detector(Config(**KW))
+
+
+def test_cpu_run_launches_no_kernel():
+    before = dict(dcn.launches)
+    ret = create_detector(Config(**KW), device="cpu").run(_frame())
+    assert dcn.launches == before
+    assert {"tot", "load", "pre", "net", "dec", "post", "merge"} <= set(ret)
+    assert sum(len(v) for v in ret["results"].values()) == 16
+
+
+def test_config_dcn_kernel():
+    cfg = Config()
+    assert cfg.prefer_fast_inference_dcn() and cfg.dcn_kernel == "rowband:6"
+    cfg = Config(dcn_kernel="off")
+    assert not cfg.prefer_fast_inference_dcn() and cfg.dcn_kernel == "off"
+    assert Config().heads == {"hm": 8, "poly": 32, "pseudo_depth": 1, "reg": 2}
+    with pytest.raises(ValueError):
+        Config(dcn_kernel="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        create_detector(Config(dcn_kernel="halo:4", **KW), device="cpu")
+
+
+def test_config_from_args():
+    cfg = Config.from_args(["polydet", "--arch", "dla_34", "--K", "7",
+                            "--test_scales", "1,0.5", "--no_mixed_precision",
+                            "--flip_test"])
+    assert (cfg.K, cfg.test_scales, cfg.mixed_precision, cfg.flip_test) == (
+        7, (1.0, 0.5), False, True)
+
+
+def test_flip_and_multiscale_run(variables):
+    """flip TTA and two scales with soft-NMS merge run end to end."""
+    cfg = Config(flip_test=True, test_scales=(1.0, 0.5), **KW)
+    ret = create_detector(cfg, variables, device="cpu").run(_frame())
+    rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
+    assert rows.shape == (16, 4 + 1 + 32 + 1) and np.isfinite(rows).all()
+
+
+def test_demo_on_a_folder(tmp_path, capsys):
+    cv2 = pytest.importorskip("cv2")
+    cv2.imwrite(str(tmp_path / "a.png"), _frame())
+    demo.main(["polydet", "--demo", str(tmp_path), "--device", "cpu",
+               "--input_h", "64", "--input_w", "128", "--head_conv", "32",
+               "--save_overlay"])
+    out = capsys.readouterr().out
+    assert "a.png: tot" in out and (tmp_path / "a_polydet.png").exists()

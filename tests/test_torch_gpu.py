@@ -1,0 +1,122 @@
+"""The port's CUDA kernel and slice on the card (marker `gpu`).
+
+Skipped where there is no CUDA device; on the card run
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+(`--noconftest`: tests/conftest.py sets up JAX, which the card's machine
+does not have; this file imports no JAX).
+
+Tolerances, as relative maxima max|got - ref| / max|ref|: 1e-4 in f32
+with TF32 off (the same f32 arithmetic summed in another order); 2e-2 in
+bf16, where the plain version rounds the bilinear fractions and corner
+products to bf16 (deform_conv.py:122) and the kernel keeps them in f32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from centerpoly_tpu_torch.configs import Config
+from centerpoly_tpu_torch.infer.detector import create_detector
+from centerpoly_tpu_torch.kernels import dcn
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+def _inputs(dev, dtype, b, h, w, c, cout, seed=0, scale=4.0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g)
+    off = torch.randn(b, h, w, 18, generator=g) * scale
+    mask = torch.sigmoid(torch.randn(b, h, w, 9, generator=g))
+    wt = torch.randn(3, 3, c, cout, generator=g) / (3 * c ** 0.5)
+    bias = torch.randn(cout, generator=g)
+    return (x.to(dev, dtype), off.to(dev), mask.to(dev), wt.to(dev, dtype),
+            bias.to(dev, dtype))
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+# ragged shapes: pixel tiles, Cin chunks and Cout tiles that do not divide
+@pytest.mark.parametrize("shape", [(2, 5, 7, 40, 70), (1, 16, 32, 64, 64),
+                                   (1, 9, 13, 3, 5)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("r", [None, 2])
+def test_kernel_matches_plain(cuda, shape, dtype, tol, r):
+    args = _inputs(cuda, dtype, *shape)
+    before = dcn.launches["exact" if r is None else "rowband"]
+    got = dcn.deform_conv2d(*args, max_offset_y=r)
+    torch.cuda.synchronize()
+    assert dcn.launches["exact" if r is None else "rowband"] == before + 1
+    ref = dcn.deform_conv2d_ref(*args, max_offset_y=r)
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert _rel(got, ref) < tol
+
+
+def test_kernel_edges(cuda):
+    """Every sample off the image gives the bias alone."""
+    x, off, mask, wt, bias = _inputs(cuda, torch.float32, 1, 6, 6, 8, 8)
+    for fill in (40.0, -40.0):
+        got = dcn.deform_conv2d(x, torch.full_like(off, fill), mask, wt, bias)
+        torch.testing.assert_close(got, bias.expand_as(got), rtol=0, atol=0)
+
+
+def test_wrapper_rejects(cuda):
+    x, off, mask, wt, bias = _inputs(cuda, torch.float32, 1, 4, 4, 8, 8)
+    with pytest.raises(TypeError):
+        dcn.deform_conv2d(x, off.bfloat16(), mask, wt, bias)
+    with pytest.raises(TypeError):
+        dcn.deform_conv2d(x.half(), off, mask, wt.half(), bias.half())
+    with pytest.raises(ValueError):
+        dcn.deform_conv2d(x.transpose(1, 2), off, mask, wt, bias)
+    with pytest.raises(ValueError):
+        dcn.deform_conv2d(x, off.cpu(), mask, wt, bias)
+    with pytest.raises(ValueError):
+        dcn.deform_conv2d(x, off[..., :9].contiguous(), mask, wt, bias)
+
+
+@pytest.mark.parametrize("mode,key", [("rowband:6", "rowband"),
+                                      ("off", "exact")])
+def test_detector_on_card(cuda, mode, key):
+    cfg = Config(input_h=64, input_w=128, head_conv=32, K=16,
+                 dcn_kernel=mode)
+    det = create_detector(cfg)
+    assert det.device.type == "cuda" and det.dtype == torch.bfloat16
+    frame = np.random.RandomState(0).randint(0, 256, (128, 256, 3), np.uint8)
+    before = dcn.launches[key]
+    ret = det.run(frame)
+    assert dcn.launches[key] == before + 16
+    rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
+    assert rows.shape == (16, 38) and np.isfinite(rows).all()
+
+
+def test_f32_model_on_card_matches_cpu(cuda):
+    from centerpoly_tpu_torch.models import create_model
+    heads = {"hm": 8, "poly": 32, "pseudo_depth": 1, "reg": 2}
+    torch.manual_seed(0)
+    model = create_model("dla_34", heads, 32, dcn_kernel="rowband:6").eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "conv_offset_mask" in name:
+                p.normal_(0, 0.3)
+    x = torch.randn(1, 3, 64, 128)
+    with torch.no_grad():
+        ref = model(x)[-1]
+        model.to(cuda, memory_format=torch.channels_last)
+        got = model(x.to(cuda, memory_format=torch.channels_last))[-1]
+    for k in heads:
+        assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
