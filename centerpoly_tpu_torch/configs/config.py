@@ -1,14 +1,15 @@
-"""Typed inference configuration.
+"""Typed experiment configuration.
 
 The port's own copy of the JAX package's `Config` (itself the reference's
 argparse `opts`, src/lib/opts.py:9-459), cut to the fields the inference
-slice reads.  The DCN mode travels to the model as the `dcn_kernel`
-argument; nothing here writes environment variables.
+and polydet training slices read.  The DCN mode travels to the model as
+the `dcn_kernel` argument; nothing here writes environment variables.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import json
+from typing import Dict, Optional, Tuple
 
 DATASET_INFO = {
     # dataset -> (default_resolution (h, w), num_classes, mean, std)
@@ -94,12 +95,19 @@ _DCN_KERNEL_PREFIXES = ("auto", "off", "on", "0", "1", "rowband", "halo")
 
 @dataclasses.dataclass
 class Config:
-    """One inference run.  Field names and defaults track the JAX package's
+    """One experiment.  Field names and defaults track the JAX package's
     Config and the reference's opts.py."""
     task: str = "polydet"
     dataset: str = "cityscapes"
+    exp_id: str = "default"
     arch: str = "dla_34"
     load_model: str = ""           # reference .pth (weights.load_reference_checkpoint)
+    resume: bool = False
+    seed: int = 317
+    data_dir: str = "data"
+    save_dir: str = "exp"
+    train_dtype: str = "float32"   # float32 | bfloat16 activations in
+                                   # training; params and Adam stay f32
 
     # model
     dcn_kernel: str = "auto"       # auto | off | on | rowband[:R] | halo[:R]
@@ -114,6 +122,33 @@ class Config:
     # input
     input_h: int = -1
     input_w: int = -1
+
+    # train
+    lr: float = 1.25e-4
+    lr_step: Tuple[int, ...] = (90, 120)
+    num_epochs: int = 240
+    batch_size: int = 32
+    val_intervals: int = 5
+    grad_clip: Optional[float] = None
+    num_workers: int = 4
+
+    # loss
+    mse_loss: bool = False
+    poly_loss: str = "l1"          # l1 | iou | l1+iou | relu
+    poly_order: bool = False
+    elliptical_gt: bool = True     # paper runs use it
+    hm_weight: float = 1.0
+    off_weight: float = 1.0
+    poly_weight: float = 1.0
+    depth_weight: float = 0.1
+
+    # augmentation
+    not_rand_crop: bool = False
+    shift: float = 0.1
+    scale: float = 0.4
+    flip: float = 0.5
+    no_reorder_flip: bool = False
+    no_color_aug: bool = False
 
     # test
     test_scales: Tuple[float, ...] = (1.0,)
@@ -143,6 +178,14 @@ class Config:
             raise ValueError(
                 f"dcn_kernel={self.dcn_kernel!r}: expected auto | off | on | "
                 f"rowband[:R] | halo[:R]")
+        if self.poly_loss in ("iou", "l1+iou") and self.rep == "cartesian":
+            raise ValueError(
+                f"poly_loss='{self.poly_loss}' requires rep='polar' or "
+                f"'polar_fixed' (got rep='cartesian'): the polygon IoU loss "
+                f"sorts (r, theta) vertex pairs by theta")
+        self.output_h = self.input_h // self.down_ratio
+        self.output_w = self.input_w // self.down_ratio
+        self.max_objs = 128
         self.heads = task_heads(self.task, self.num_classes, self.nbr_points,
                                 self.reg_offset, self.cat_spec_poly)
 
@@ -158,6 +201,10 @@ class Config:
             return False
         self.dcn_kernel = INFERENCE_DCN_KERNEL_DEFAULT
         return True
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self) | {"heads": self.heads},
+                          indent=2, default=str)
 
     @classmethod
     def from_args(cls, argv=None) -> "Config":
@@ -180,6 +227,8 @@ class Config:
             elif isinstance(f.default, tuple):
                 parser.add_argument(f"--{name}", type=str,
                                     default=",".join(map(str, f.default)))
+            elif f.default is None:
+                parser.add_argument(f"--{name}", type=float, default=None)
             else:
                 parser.add_argument(f"--{name}", type=type(f.default),
                                     default=f.default)
@@ -188,6 +237,7 @@ class Config:
         for name, f in fields.items():
             v = getattr(ns, name)
             if isinstance(f.default, tuple) and isinstance(v, str):
-                v = tuple(float(x) for x in v.split(",") if x)
+                cast = float if name == "test_scales" else int
+                v = tuple(cast(x) for x in v.split(",") if x)
             kwargs[name] = v
         return cls(**kwargs)

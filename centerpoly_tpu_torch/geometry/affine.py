@@ -69,6 +69,12 @@ def get_affine_transform(center, scale, rot: float, output_size,
     return _solve_affine(src, dst)
 
 
+def affine_transform_points(pts, trans) -> np.ndarray:
+    """Apply a 2x3 affine to an (..., 2) array of (x, y) points (f64)."""
+    pts = np.asarray(pts, dtype=np.float64)
+    return pts @ np.asarray(trans)[:, :2].T + np.asarray(trans)[:, 2]
+
+
 def _sampling_matrix(out_size: int, in_size: int, scale: torch.Tensor,
                      shift: torch.Tensor) -> torch.Tensor:
     """(out, in) bilinear sampling matrix for in = (out - shift) / scale.

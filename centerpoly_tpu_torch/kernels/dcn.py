@@ -1,4 +1,4 @@
-"""DCNv2 forward: the hand-written CUDA kernel and its plain PyTorch version.
+"""DCNv2: the hand-written CUDA kernels and their plain PyTorch versions.
 
 `deform_conv2d` keeps the JAX package's layout and contract
 (centerpoly_tpu/models/deform_conv.py::deform_conv2d):
@@ -11,12 +11,16 @@
 
 `max_offset_y=None` is the exact semantics of kernels/dcn_pallas.py; an
 integer R is the `rowband:R` semantics of kernels/dcn_rowband.py: y-offsets
-clamped to [-R, R], x exact, samples outside the image zero.
+clamped to [-R, R], x exact, samples outside the image zero.  The clamp
+passes a y-offset gradient of 1 inside the band, 0.5 at exactly +-R and 0
+beyond (jnp.clip's tie rule, dcn_rowband.py:458-465).
 
-On a CUDA tensor the wrapper launches csrc/dcn_fwd.cu (built with nvcc for
-sm_90a at first use, bound through a plain C interface) or raises; on a CPU
-tensor it computes `deform_conv2d_ref`.  The kernel takes f32 or bf16
-activations and weights and accumulates in f32.
+On a CUDA tensor the forward launches csrc/dcn_fwd.cu and the backward
+csrc/dcn_bwd.cu (each built with nvcc for sm_90a at first use, bound
+through a plain C interface) or raises; on a CPU tensor the forward is
+`deform_conv2d_ref` and the backward is autograd through it
+(`deform_conv2d_backward_ref`).  The kernels take f32 or bf16
+activations and weights and accumulate in f32.
 """
 from __future__ import annotations
 
@@ -29,17 +33,18 @@ import subprocess
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "dcn_fwd.cu")
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in ("dcn_fwd", "dcn_bwd")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches by clamp mode; only the CUDA branch of deform_conv2d
-# counts, so a run can show that its DCN nodes went through the kernel
-launches = {"exact": 0, "rowband": 0}
+# kernel launches by kernel and clamp mode; only the CUDA branches count,
+# so a run can show that its DCN nodes went through the kernels
+launches = {"exact": 0, "rowband": 0, "bwd_exact": 0, "bwd_rowband": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -50,59 +55,110 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                           "to build csrc/dcn_fwd.cu")
+                           "to build the csrc/ kernels")
     return found
 
 
-def build() -> tuple[str, str]:
-    """Compile csrc/dcn_fwd.cu into BUILD_DIR unless a library of the same
-    source is already there.  Returns (library path, nvcc's ptxas report)."""
-    with open(SOURCE, "rb") as f:
+def _lib_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libdcn_fwd-{digest}.so")
-    log = lib[:-3] + ".log"
-    if not os.path.exists(lib):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build() -> dict[str, tuple[str, str]]:
+    """Compile every csrc/ source whose library is not yet in BUILD_DIR,
+    one nvcc process per source, all started together.  Returns
+    {name: (library path, nvcc's ptxas report)}."""
+    procs = {}
+    for name, src in SOURCES.items():
+        lib = _lib_path(name)
+        if not os.path.exists(lib):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            procs[name] = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in procs.items():
+        out = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        with open(log, "w") as f:
-            f.write(proc.stdout + proc.stderr)
+            failed.append(f"nvcc {name} failed ({proc.returncode}):\n{out}")
+            continue
+        with open(lib[:-3] + ".log", "w") as f:
+            f.write(out)
         os.replace(tmp, lib)
-    with open(log) as f:
-        return lib, f.read()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    ret = {}
+    for name in SOURCES:
+        lib = _lib_path(name)
+        with open(lib[:-3] + ".log") as f:
+            ret[name] = (lib, f.read())
+    return ret
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()[0])
+def _load(name: str):
+    if name not in _libs:
+        lib = ctypes.CDLL(build()[name][0])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                ctypes.c_float, p]
-        lib.dcn_fwd.restype = i
-        _lib = lib
-    return _lib
+        if name == "dcn_fwd":
+            lib.dcn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                    ctypes.c_float, p]
+            lib.dcn_fwd.restype = i
+        else:
+            lib.dcn_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                    ctypes.c_float, p]
+            lib.dcn_bwd.restype = i
+        _libs[name] = lib
+    return _libs[name]
 
 
-def _clamp_y(offsets: torch.Tensor, r: float) -> torch.Tensor:
-    """Clamp only the y components ([..., 0::2]) to [-r, r]
-    (kernels/dcn_rowband.py::_clamp_y)."""
-    oy = offsets[..., 0::2].clamp(-r, r)
-    ox = offsets[..., 1::2]
-    return torch.stack([oy, ox], dim=-1).reshape(offsets.shape)
+def clamp_y_keep(oy: torch.Tensor, r: float) -> torch.Tensor:
+    """d clip(oy, -r, r) / d oy under jnp.clip's tie rule: 1 inside the
+    band, 0.5 at exactly +-r, 0 beyond (dcn_rowband.py:458-465)."""
+    one = torch.ones_like(oy)
+    half, zero = 0.5 * one, torch.zeros_like(oy)
+    return (torch.where(oy > -r, one, torch.where(oy == -r, half, zero))
+            * torch.where(oy < r, one, torch.where(oy == r, half, zero)))
+
+
+class _ClampY(torch.autograd.Function):
+    """Clamp only the y components ([..., 0::2]) to [-r, r], with the
+    JAX package's gradient at the bound (not Tensor.clamp's 1)."""
+
+    @staticmethod
+    def forward(ctx, offsets, r):
+        ctx.save_for_backward(offsets)
+        ctx.r = r
+        out = offsets.clone()
+        out[..., 0::2] = torch.minimum(torch.maximum(
+            offsets[..., 0::2], offsets.new_tensor(-r)), offsets.new_tensor(r))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (offsets,) = ctx.saved_tensors
+        g = g.clone()
+        g[..., 0::2] *= clamp_y_keep(offsets[..., 0::2], ctx.r)
+        return g, None
+
+
+def clamp_y(offsets: torch.Tensor, r: float) -> torch.Tensor:
+    """y-clamp of kernels/dcn_rowband.py::_clamp_y with its tie rule."""
+    return _ClampY.apply(offsets, float(r))
 
 
 def deform_conv2d_ref(x, offsets, masks, weights, bias=None,
                       max_offset_y: int | None = None) -> torch.Tensor:
     """Plain PyTorch DCNv2 forward with the arithmetic of the JAX
     `deform_conv2d`, including the rounding of the fractions fy, fx to
-    x.dtype; with `max_offset_y` the offsets are y-clamped first."""
+    x.dtype; with `max_offset_y` the offsets are y-clamped first.  Its
+    autograd is the JAX package's: floor has no gradient, so a sample at
+    an integer position differentiates on its floor cell (hat derivative
+    -1 there, not 0)."""
     if max_offset_y is not None:
-        offsets = _clamp_y(offsets, float(max_offset_y))
+        offsets = clamp_y(offsets, max_offset_y)
     b, h, w, cin = x.shape
     cout = weights.shape[-1]
     dev = x.device
@@ -114,8 +170,8 @@ def deform_conv2d_ref(x, offsets, masks, weights, bias=None,
     off = offsets.reshape(b, h, w, 9, 2).float()
     sy = gy[None, :, :, None] + ky + off[..., 0]
     sx = gx[None, :, :, None] + kx + off[..., 1]
-    y0 = torch.floor(sy)
-    x0 = torch.floor(sx)
+    y0 = torch.floor(sy).detach()
+    x0 = torch.floor(sx).detach()
     fy = (sy - y0)[..., None].to(x.dtype)
     fx = (sx - x0)[..., None].to(x.dtype)
     y0 = y0.long()
@@ -142,45 +198,56 @@ def deform_conv2d_ref(x, offsets, masks, weights, bias=None,
     return out.to(x.dtype)
 
 
-def _check(x, offsets, masks, weights, bias):
+def deform_conv2d_backward_ref(x, offsets, masks, weights, bias, g,
+                               max_offset_y: int | None = None):
+    """Plain backward: (dx, doffsets, dmasks, dweights, dbias) by autograd
+    through `deform_conv2d_ref`, on any device."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, offsets, masks, weights, bias)]
+        out = deform_conv2d_ref(*leaves, max_offset_y=max_offset_y)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _check(x, offsets, masks, weights, bias, g=None):
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"dcn_fwd: x must be float32 or bfloat16, got {x.dtype}")
+        raise TypeError(f"dcn: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4:
-        raise ValueError(f"dcn_fwd: x must be (B, H, W, Cin), got {tuple(x.shape)}")
+        raise ValueError(f"dcn: x must be (B, H, W, Cin), got {tuple(x.shape)}")
     b, h, w, cin = x.shape
     cout = weights.shape[-1]
     want = {"offsets": (offsets, (b, h, w, 18), torch.float32),
             "masks": (masks, (b, h, w, 9), torch.float32),
             "weights": (weights, (3, 3, cin, cout), x.dtype),
             "bias": (bias, (cout,), x.dtype)}
+    if g is not None:
+        want["grad"] = (g, (b, h, w, cout), x.dtype)
     for name, (t, shape, dtype) in [("x", (x, tuple(x.shape), x.dtype)),
                                     *want.items()]:
         if t.device != x.device:
-            raise ValueError(f"dcn_fwd: {name} on {t.device}, x on {x.device}")
+            raise ValueError(f"dcn: {name} on {t.device}, x on {x.device}")
         if tuple(t.shape) != shape:
-            raise ValueError(f"dcn_fwd: {name} must be {shape}, got "
+            raise ValueError(f"dcn: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
         if t.dtype != dtype:
-            raise TypeError(f"dcn_fwd: {name} must be {dtype}, got {t.dtype}")
+            raise TypeError(f"dcn: {name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"dcn_fwd: {name} must be contiguous")
+            raise ValueError(f"dcn: {name} must be contiguous")
 
 
-def deform_conv2d(x, offsets, masks, weights, bias=None,
-                  max_offset_y: int | None = None) -> torch.Tensor:
-    """DCNv2 forward (see the module docstring for the contract)."""
+def _forward(x, offsets, masks, weights, bias, max_offset_y):
+    """The forward on x's device: the kernel on CUDA, the plain version on
+    the CPU."""
     if x.device.type == "cpu":
         return deform_conv2d_ref(x, offsets, masks, weights, bias,
                                  max_offset_y)
     if x.device.type != "cuda":
         raise ValueError(f"dcn_fwd: no kernel for device {x.device}")
-    if bias is None:
-        bias = torch.zeros(weights.shape[-1], dtype=x.dtype, device=x.device)
     _check(x, offsets, masks, weights, bias)
     b, h, w, cin = x.shape
     cout = weights.shape[-1]
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    lib = _load()
+    lib = _load("dcn_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dcn_fwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
@@ -192,3 +259,85 @@ def deform_conv2d(x, offsets, masks, weights, bias=None,
         raise RuntimeError(f"dcn_fwd launch failed: cudaError {err}")
     launches["exact" if max_offset_y is None else "rowband"] += 1
     return out
+
+
+def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
+                           max_offset_y: int | None = None):
+    """DCNv2 backward: (dx, doffsets, dmasks, dweights, dbias) for the
+    cotangent g (B, H, W, Cout) of `deform_conv2d`; offsets are the raw
+    (unclamped) ones.
+
+    On CUDA: gk = W_k @ g for every tap (one f32 matmul,
+    dcn_rowband.py:309), then csrc/dcn_bwd.cu recomputes each tap's four
+    bilinear corners and emits the samples, d offsets, d masks and dx by
+    f32 atomics; dW and db are matmul / sum over those (:353-355), and
+    the clamp pass-through scales the y-offset gradients (:458-465)."""
+    if x.device.type == "cpu":
+        return deform_conv2d_backward_ref(x, offsets, masks, weights, bias,
+                                          g, max_offset_y)
+    if x.device.type != "cuda":
+        raise ValueError(f"dcn_bwd: no kernel for device {x.device}")
+    _check(x, offsets, masks, weights, bias, g)
+    b, h, w, cin = x.shape
+    cout = weights.shape[-1]
+    npix = b * h * w
+    g2 = g.reshape(npix, cout).float()
+    # (npix, 9*Cin) f32: 302 MB for the 128x256x64 node at batch 4
+    gk = g2 @ weights.reshape(9 * cin, cout).float().T
+    samp = torch.empty((npix, 9 * cin), dtype=torch.float32, device=x.device)
+    doff = torch.empty((b, h, w, 18), dtype=torch.float32, device=x.device)
+    dmask = torch.empty((b, h, w, 9), dtype=torch.float32, device=x.device)
+    dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=x.device)
+    lib = _load("dcn_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dcn_bwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
+                          gk.data_ptr(), samp.data_ptr(), doff.data_ptr(),
+                          dmask.data_ptr(), dx.data_ptr(), b, h, w, cin,
+                          _DTYPE_CODE[x.dtype],
+                          int(max_offset_y is not None),
+                          float(max_offset_y or 0), stream)
+    if err != 0:
+        raise RuntimeError(f"dcn_bwd launch failed: cudaError {err}")
+    launches["bwd_exact" if max_offset_y is None else "bwd_rowband"] += 1
+    if max_offset_y is not None:
+        doff[..., 0::2] *= clamp_y_keep(offsets[..., 0::2],
+                                        float(max_offset_y))
+    del gk      # stream-ordered: its memory is reused after the kernel
+    # modulated samples in place: dW = (m S)^T g
+    samp.view(npix, 9, cin).mul_(masks.reshape(npix, 9, 1))
+    dw = (samp.T @ g2).reshape(3, 3, cin, cout)
+    db = g2.sum(0)
+    return (dx.to(x.dtype), doff, dmask, dw.to(weights.dtype),
+            db.to(bias.dtype))
+
+
+class _DeformConv2d(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient.  Saves
+    the raw offsets: the kernels own the y-clamp and its tie rule."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, masks, weights, bias, max_offset_y):
+        ctx.save_for_backward(x, offsets, masks, weights, bias)
+        ctx.max_offset_y = max_offset_y
+        return _forward(x, offsets, masks, weights, bias, max_offset_y)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = deform_conv2d_backward(*ctx.saved_tensors, g.contiguous(),
+                                       ctx.max_offset_y)
+        return (*grads, None)
+
+
+def deform_conv2d(x, offsets, masks, weights, bias=None,
+                  max_offset_y: int | None = None) -> torch.Tensor:
+    """DCNv2 forward (see the module docstring for the contract); when
+    grad is enabled the result carries the backward of
+    `deform_conv2d_backward`."""
+    if bias is None:
+        bias = torch.zeros(weights.shape[-1], dtype=x.dtype, device=x.device)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, offsets, masks, weights, bias)):
+        return _DeformConv2d.apply(x, offsets, masks, weights, bias,
+                                   max_offset_y)
+    return _forward(x, offsets, masks, weights, bias, max_offset_y)

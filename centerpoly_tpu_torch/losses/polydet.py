@@ -1,0 +1,70 @@
+"""Combined polydet training loss (reference src/lib/trains/polydet.py:
+38-162 PolydetLoss.forward), as the JAX package's losses/polydet.py:
+
+  total = hm_weight * focal(sigmoid(hm)) + off_weight * L1(reg at peaks)
+        + poly_weight * (poly [+ order]) + depth_weight * L1(depth at peaks)
+
+averaged over stacks.  Head maps are NHWC here, as in the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+
+from .focal import clamped_sigmoid, focal_loss
+from .poly import poly_loss
+from .regression import reg_l1_loss
+
+
+@dataclasses.dataclass(frozen=True)
+class PolydetLossConfig:
+    """Loss weights and flags; defaults match reference opts.py."""
+    hm_weight: float = 1.0
+    off_weight: float = 1.0
+    poly_weight: float = 1.0
+    depth_weight: float = 0.1
+    rep: str = "cartesian"            # cartesian | polar | polar_fixed
+    poly_loss: str = "l1"             # l1 | iou | l1+iou | relu
+    poly_order: bool = False
+    reg_offset: bool = True
+    mse_loss: bool = False
+
+
+def polydet_loss(outputs: List[Dict[str, torch.Tensor]],
+                 batch: Dict[str, torch.Tensor], cfg: PolydetLossConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """outputs: per-stack dicts of NHWC head maps (raw logits for 'hm');
+    batch: 'hm' (B,H,W,C), 'reg_mask' (B,K), 'ind' (B,K), 'poly'
+    (B,K,2N), 'pseudo_depth' (B,K,1), optional 'reg' (B,K,2).  Returns
+    (loss, stats) with the reference's stat keys."""
+    num_stacks = len(outputs)
+    hm_l = off_l = poly_l = depth_l = order_l = 0.0
+    for out in outputs:
+        if cfg.mse_loss:
+            hm_l += torch.mean((out["hm"] - batch["hm"]) ** 2) / num_stacks
+        else:
+            hm_l += focal_loss(clamped_sigmoid(out["hm"]),
+                               batch["hm"]) / num_stacks
+        depth_l += reg_l1_loss(out["pseudo_depth"], batch["reg_mask"],
+                               batch["ind"], batch["pseudo_depth"]) / num_stacks
+        p = poly_loss(out["poly"], batch["reg_mask"], batch["ind"],
+                      batch["poly"], rep=cfg.rep, kind=cfg.poly_loss,
+                      with_order=cfg.poly_order)
+        if cfg.poly_order:
+            poly_l += p[0] / num_stacks
+            order_l += p[1] / num_stacks
+        else:
+            poly_l += p / num_stacks
+        if cfg.reg_offset and cfg.off_weight > 0:
+            off_l += reg_l1_loss(out["reg"], batch["reg_mask"], batch["ind"],
+                                 batch["reg"]) / num_stacks
+    poly_total = poly_l + order_l if cfg.poly_order else poly_l
+    loss = (cfg.hm_weight * hm_l + cfg.off_weight * off_l
+            + cfg.poly_weight * poly_total + cfg.depth_weight * depth_l)
+    stats = {"loss": loss, "hm_l": hm_l, "off_l": off_l, "poly_l": poly_l,
+             "depth_l": depth_l}
+    if cfg.poly_order:
+        stats["order_l"] = order_l
+    return loss, {k: torch.as_tensor(v) for k, v in stats.items()}

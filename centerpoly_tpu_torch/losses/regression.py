@@ -1,0 +1,17 @@
+"""Masked L1 at gathered peak indices: reference losses.py:817-830
+(RegL1Loss), as the JAX package's losses/regression.py::reg_l1_loss."""
+from __future__ import annotations
+
+import torch
+
+from ..geometry.polygon import abs_
+from ..ops.gather import gather_feat_nhwc
+
+
+def reg_l1_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
+                target: torch.Tensor) -> torch.Tensor:
+    """L1 at peaks. output (B,H,W,D); mask (B,K); ind (B,K); target
+    (B,K,D); normalised by the expanded mask sum (objects x D)."""
+    pred = gather_feat_nhwc(output, ind)
+    m = mask[..., None].to(pred.dtype).expand_as(pred)
+    return abs_(pred * m - target * m).sum() / (m.sum() + 1e-4)

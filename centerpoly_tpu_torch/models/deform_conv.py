@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ..kernels.dcn import deform_conv2d
+from .layers import BatchNorm2d
 
 # rowband R when `dcn_kernel` says `rowband` without one
 # (kernels/dcn_rowband.py DEFAULT_MAX_OFFSET)
@@ -66,9 +67,12 @@ class DCNv2(nn.Module):
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1).float()
         offsets = om[..., :18].contiguous()
         masks = torch.sigmoid(om[..., 18:]).contiguous()
-        out = deform_conv2d(x.permute(0, 2, 3, 1).contiguous(), offsets,
-                            masks, self.weight.permute(2, 3, 1, 0).contiguous(),
-                            self.bias, self.max_offset_y)
+        # raw offsets: the kernels own the y-clamp and its gradient rule
+        # (clamping here too would compose to 0.25 at the bound)
+        out = deform_conv2d(
+            x.permute(0, 2, 3, 1).contiguous(), offsets, masks,
+            self.weight.permute(2, 3, 1, 0).to(x.dtype).contiguous(),
+            self.bias.to(x.dtype), self.max_offset_y)
         return out.permute(0, 3, 1, 2)
 
 
@@ -79,7 +83,7 @@ class DeformConvBlock(nn.Module):
                  dcn_kernel: str = "auto"):
         super().__init__()
         self.conv = DCNv2(in_channels, out_channels, dcn_kernel)
-        self.actf = nn.Sequential(nn.BatchNorm2d(out_channels),
+        self.actf = nn.Sequential(BatchNorm2d(out_channels),
                                   nn.ReLU(inplace=True))
 
     def forward(self, x):

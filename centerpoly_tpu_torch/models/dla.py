@@ -19,7 +19,7 @@ from torch import nn
 
 from .deform_conv import DeformConvBlock
 from .heads import head_stack
-from .layers import ConvBN, Residual, bilinear_upsample_kernel
+from .layers import BatchNorm2d, ConvBN, Residual, bilinear_upsample_kernel
 
 LEVELS = (1, 1, 1, 2, 2, 1)
 CHANNELS = (16, 32, 64, 128, 256, 512)
@@ -32,7 +32,7 @@ class Root(nn.Module):
                  residual: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, 1, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels)
+        self.bn = BatchNorm2d(out_channels)
         self.residual = residual
 
     def forward(self, *children):
@@ -66,8 +66,9 @@ class Tree(nn.Module):
         self.levels = levels
         self.level_root = level_root
         self.downsample = nn.MaxPool2d(stride, stride) if stride > 1 else None
-        # the reference builds `project` at every level; only a level-1
-        # tree reads it (a deeper one passes it to a Tree that ignores it)
+        # the reference builds and runs `project` at every level; only a
+        # level-1 tree reads its output (a deeper one passes it to a Tree
+        # that ignores it), but in training its BatchNorm statistics move
         self.project = (ConvBN(in_channels, out_channels, 1, relu=False)
                         if in_channels != out_channels else None)
 
@@ -81,6 +82,8 @@ class Tree(nn.Module):
             x1 = self.tree1(x, residual)
             x2 = self.tree2(x1)
             return self.root(x2, x1, *children)
+        if self.training and self.project is not None:
+            self.project(bottom)     # running statistics only
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children=children)

@@ -10,6 +10,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm whose running variance tracks the *biased* batch variance,
+    as flax's BatchNorm does (nn.BatchNorm2d tracks the unbiased one).
+    Training normalises with the biased batch statistics, as both do;
+    momentum 0.1 here is flax's 0.9.  Parameter and buffer names are
+    nn.BatchNorm2d's, so state_dicts load unchanged."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class ConvBN(nn.Sequential):
@@ -21,7 +44,7 @@ class ConvBN(nn.Sequential):
         pad = dilation * (kernel // 2)
         layers = [nn.Conv2d(in_channels, out_channels, kernel, stride, pad,
                             dilation, bias=False),
-                  nn.BatchNorm2d(out_channels)]
+                  BatchNorm2d(out_channels)]
         if relu:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(*layers)
@@ -36,10 +59,10 @@ class Residual(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, stride,
                                dilation, dilation, bias=False)
-        self.bn1 = nn.BatchNorm2d(out_channels)
+        self.bn1 = BatchNorm2d(out_channels)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, 1, dilation,
                                dilation, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_channels)
+        self.bn2 = BatchNorm2d(out_channels)
 
     def forward(self, x, residual=None):
         if residual is None:

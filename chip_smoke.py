@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA H100 and hold its CUDA
-kernel against the plain PyTorch version.
+"""Drive the PyTorch port's main paths on one NVIDIA H100 and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
-The main path is DLA-34 polydet inference on 2048x1024 Cityscapes frames
+The main paths are DLA-34 polydet inference on 2048x1024 Cityscapes frames
 at full width (8 classes, 16 vertices, head_conv 256, 512x1024 network
 input), seeded random weights, through `create_detector(...).run` and
-`run_batch`.  Phases (any failure exits non-zero, with no result line):
+`run_batch`; and polydet training at the same width through
+`centerpoly_tpu_torch.main` on a synthetic 2048x1024 fixture (batch 4,
+f32, the paper's v2 loss).  Phases (any failure exits non-zero, with no
+result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
   2. build csrc/dcn_fwd.cu with nvcc (sm_90a) and print ptxas's report;
@@ -22,7 +25,17 @@ input), seeded random weights, through `create_detector(...).run` and
      the card (TF32 off) against the port on the CPU, per head;
   5. times with CUDA events at each node shape (kernel, plain version,
      bound) and end to end per frame;
-  6. device time by kernel and the device's busy share (torch.profiler).
+  6. device time by kernel and the device's busy share (torch.profiler);
+  7. csrc/dcn_bwd.cu against the plain backward at the 7 node shapes,
+     batch 2, exact and rowband:4, f32 and bf16, plus y-offsets at +-R and
+     all-zero offsets (tolerances in `phase_bwd_vs_plain`);
+  8. the training slice: `main` for one epoch of 2 steps in `off` and
+     rowband:4 (16 forward + 16 backward launches a step), the loss
+     falling on one fixed batch, a checkpoint round trip, and one f32
+     step on the card against the port on the CPU (`phase_train_vs_cpu`);
+  9. the backward's times per node and per step (wrapper, plain, bound),
+     train step p50 and images/s, the loader's host time, one profiled
+     step; the worked-out bounds of the unported halo kernels.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -47,11 +60,24 @@ NODE_SHAPES = {(16, 32, 512, 256): 1, (32, 64, 256, 256): 1,
                (64, 128, 128, 64): 4, (32, 64, 256, 64): 1,
                (128, 256, 64, 64): 5}
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 FRAME_HW = (1024, 2048)
-SOURCE = "centerpoly_tpu_torch/csrc/dcn_fwd.cu"
-REPLACES = {"exact": "centerpoly_tpu/kernels/dcn_pallas.py:44",
-            "rowband": "centerpoly_tpu/kernels/dcn_rowband.py:132"}
+SOURCES = {"dcn_fwd": "centerpoly_tpu_torch/csrc/dcn_fwd.cu",
+           "dcn_bwd": "centerpoly_tpu_torch/csrc/dcn_bwd.cu"}
+REPLACES = {"dcn_fwd[exact]": "centerpoly_tpu/kernels/dcn_pallas.py:44",
+            "dcn_fwd[rowband]": "centerpoly_tpu/kernels/dcn_rowband.py:132",
+            # the exact mode's backward is XLA autodiff in the JAX package
+            "dcn_bwd[exact]": "centerpoly_tpu/models/deform_conv.py:744",
+            "dcn_bwd[rowband]": "centerpoly_tpu/kernels/dcn_rowband.py:190"}
+# the training slice: rowband R, batch, and the flags of the paper's v2
+# run (polar polygons, L1 + IoU polygon loss, vertex order loss)
+TRAIN_R = 4
+TRAIN_BATCH = 4
+TRAIN_MODES = {"exact": "off", "rowband": f"rowband:{TRAIN_R}"}
+TRAIN_FLAGS = ["--rep", "polar", "--poly_loss", "l1+iou", "--poly_order",
+               "--lr", "2e-4"]
+BWD_NAMES = ("dx", "doffsets", "dmasks", "dweights", "dbias")
 
 
 def check(cond: bool, msg: str):
@@ -74,15 +100,15 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def node_inputs(shape, dtype, seed):
+def node_inputs(shape, dtype, seed, batch=1):
     """Seeded DCN node inputs on the card; offsets of std 4 px, so some
     y-offsets pass the rowband:6 band."""
     import torch
     h, w, cin, cout = shape
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(1, h, w, cin, generator=g)
-    off = torch.randn(1, h, w, 18, generator=g) * 4.0
-    mask = torch.sigmoid(torch.randn(1, h, w, 9, generator=g))
+    x = torch.randn(batch, h, w, cin, generator=g)
+    off = torch.randn(batch, h, w, 18, generator=g) * 4.0
+    mask = torch.sigmoid(torch.randn(batch, h, w, 9, generator=g))
     wt = torch.randn(3, 3, cin, cout, generator=g) / (3 * cin ** 0.5)
     bias = torch.randn(cout, generator=g)
     dev = torch.device("cuda")
@@ -145,13 +171,16 @@ def phase_card():
 
 
 def phase_build():
+    """Build every csrc/ source (one nvcc each, started together)."""
     from centerpoly_tpu_torch.kernels import dcn
     t0 = time.perf_counter()
-    path, log = dcn.build()
-    print(f"[build] {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "ptxas" in line:
-            print(f"[build] {line.strip()}")
+    built = dcn.build()
+    print(f"[build] {', '.join(os.path.relpath(p) for p, _ in built.values())}"
+          f" in {time.perf_counter() - t0:.1f} s")
+    for name, (_, log) in built.items():
+        for line in log.splitlines():
+            if "ptxas" in line and ("Used" in line or "spill" in line):
+                print(f"[build] {name}: {line.strip()}")
 
 
 def phase_kernel_vs_plain():
@@ -181,8 +210,7 @@ def run_counted(fn, key):
     """Run one path with the launch counts zeroed just before and read
     just after."""
     from centerpoly_tpu_torch.kernels import dcn
-    for k in dcn.launches:
-        dcn.launches[k] = 0
+    zero_counts()
     out = fn()
     counts = dict(dcn.launches)
     check(counts[key] == 16 and sum(counts.values()) == 16,
@@ -351,25 +379,500 @@ def phase_profile(det, frames):
         print(f"[profile] {ms / 3:8.3f} ms/frame  {n // 3:4d} calls/frame  {key[:90]}")
 
 
+def rel_max(got, ref) -> float:
+    """max |got - ref| / max |ref| (0 where both are 0)."""
+    d = (got.double() - ref.double()).abs().max().item()
+    scale = ref.double().abs().max().item()
+    return d / scale if scale > 0 else (0.0 if d == 0 else float("inf"))
+
+
+def bwd_inputs(shape, dtype, seed, batch):
+    """Node inputs and a seeded cotangent for the backward."""
+    import torch
+    args = node_inputs(shape, dtype, seed, batch)
+    g = torch.randn(batch, *shape[:2], shape[3],
+                    generator=torch.Generator().manual_seed(seed + 1000))
+    return args, g.to("cuda", dtype)
+
+
+def check_bwd(label, args, g, r, tol, tol_off):
+    """The backward kernel (through its wrapper) against the plain
+    backward on the same inputs; returns the largest absolute error."""
+    import torch
+    from centerpoly_tpu_torch.kernels import dcn
+    got = dcn.deform_conv2d_backward(*args, g, r)
+    ref = dcn.deform_conv2d_backward_ref(*args, g, r)
+    torch.cuda.synchronize()
+    rel = {n: rel_max(a, b) for n, a, b in zip(BWD_NAMES, got, ref)}
+    worst = max((a.double() - b.double()).abs().max().item()
+                for a, b in zip(got, ref))
+    print(f"[bwd] {label} rel_max " + " ".join(
+        f"{n} {v:.2e}" for n, v in rel.items())
+        + f" (tol {tol:g}, d offsets {tol_off:g})")
+    check(all(np.isfinite(v) for v in rel.values())
+          and rel["doffsets"] < tol_off
+          and max(v for n, v in rel.items() if n != "doffsets") < tol,
+          f"backward kernel disagrees: {label}")
+    return worst
+
+
+def phase_bwd_vs_plain():
+    """dcn_bwd against the plain backward (autograd through
+    deform_conv2d_ref, with the clamp's tie rule) at the 7 node shapes,
+    batch 2.  Tolerances, relative max: f32 (TF32 off) 1e-4 for dx, dW,
+    dmask, db (the same f32 sums in another order; dx by atomics) and 1e-3
+    for the offsets (differences of neighbouring samples, so their error is
+    that of the samples over the size of the difference); bf16 3e-2 (the
+    plain version rounds the bilinear fractions and products to bf16 and
+    scatters dx in bf16, the kernel keeps f32)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {"exact": 0.0, "rowband": 0.0}
+    for i, shape in enumerate(NODE_SHAPES):
+        for dtype, tol, tol_off in ((torch.float32, 1e-4, 1e-3),
+                                    (torch.bfloat16, 3e-2, 3e-2)):
+            args, g = bwd_inputs(shape, dtype, SEED + i, 2)
+            for mode, r in (("exact", None), ("rowband", TRAIN_R)):
+                worst = check_bwd(f"{shape} {mode:7s} {str(dtype)[6:]:8s}",
+                                  args, g, r, tol, tol_off)
+                if dtype == torch.float32:
+                    errs[mode] = max(errs[mode], worst)
+    # the tie rules: y-offsets exactly at +-R (gradient 0.5 there) and all
+    # offsets 0 (the offset convs' init: every sample on an integer
+    # position, where the floor cell's derivative is taken)
+    shape = (64, 128, 128, 64)
+    (x, off, mask, wt, bias), g = bwd_inputs(shape, torch.float32, SEED, 2)
+    at_r = off.clone()
+    at_r[..., 0::2] = torch.where(off[..., 0::2] > 0, float(TRAIN_R),
+                                  -float(TRAIN_R))
+    for case, o in (("y at +-R", at_r), ("zero offsets", torch.zeros_like(off))):
+        for mode, r in (("exact", None), ("rowband", TRAIN_R)):
+            check_bwd(f"{shape} {mode:7s} {case}", (x, o, mask, wt, bias), g,
+                      r, 1e-4, 1e-3)
+    return errs
+
+
+def zero_counts():
+    from centerpoly_tpu_torch.kernels import dcn
+    for k in dcn.launches:
+        dcn.launches[k] = 0
+
+
+def train_argv(root, kernel, input_hw=(512, 1024), epochs=1):
+    return ["polydet", "--dataset", "cityscapes", "--data_dir", root,
+            "--save_dir", os.path.join(root, "exp"), "--exp_id",
+            kernel.replace(":", "_"), "--input_h", str(input_hw[0]),
+            "--input_w", str(input_hw[1]), "--batch_size", str(TRAIN_BATCH),
+            "--num_workers", "0", "--num_epochs", str(epochs),
+            "--val_intervals", "1", "--dcn_kernel", kernel, *TRAIN_FLAGS]
+
+
+def phase_train(root):
+    """The training slice at full width through its entry point
+    (`centerpoly_tpu_torch.main.main`: CityscapesMeta -> PolydetSampler ->
+    Loader -> Trainer.fit) on the 2048x1024 fixture, in `off` (the
+    training default, exact DCN) and rowband:4; then 5 steps on one fixed
+    batch and a checkpoint round trip."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.train import checkpoint, state as tstate
+
+    trainers, launches = {}, {}
+    for mode, kernel in TRAIN_MODES.items():
+        zero_counts()
+        t0 = time.perf_counter()
+        tr = tmain.main(train_argv(root, kernel))
+        torch.cuda.synchronize()
+        counts = dict(dcn.launches)
+        dt = time.perf_counter() - t0
+        steps, n_val = tr.state.step, len(tr.val_loader)
+        want = dict.fromkeys(counts, 0)
+        want[mode] = 16 * (steps + n_val)
+        want[f"bwd_{mode}"] = 16 * steps
+        print(f"[train] main --dcn_kernel {kernel}: {steps} steps of batch "
+              f"{TRAIN_BATCH} at {tr.cfg.input_h}x{tr.cfg.input_w} + {n_val} "
+              f"val batches in {dt:.1f} s; launches {counts}")
+        check(steps == 2 and counts == want,
+              f"expected 16 forward + 16 backward launches a step, {want}")
+        save_dir = os.path.join(root, "exp", "cityscapes", "polydet",
+                                kernel.replace(":", "_"))
+        for tag in ("last", "best"):
+            check(os.path.isfile(checkpoint.checkpoint_path(save_dir, tag)),
+                  f"no model_{tag}.pth after main")
+        launches[mode] = counts[f"bwd_{mode}"]
+        trainers[mode] = tr
+
+        batch = tr.put(next(iter(tr.train_loader)))
+        losses = []
+        for _ in range(6):
+            tr.state, stats = tr.train_step(tr.state, batch)
+            losses.append(float(stats["loss"]))
+        print(f"[train] {kernel}: loss on one fixed batch over 5 updates: "
+              + " ".join(f"{v:.4f}" for v in losses))
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"loss did not fall on a fixed batch ({kernel})")
+
+    tr = trainers["exact"]
+    ckdir = os.path.join(root, "ckpt")
+    os.makedirs(ckdir, exist_ok=True)
+    checkpoint.save_checkpoint(ckdir, "smoke", tr.state, 3)
+    model = create_model(tr.cfg.arch, tr.cfg.heads, tr.cfg.head_conv,
+                         dcn_kernel=tr.cfg.dcn_kernel)
+    fresh = tstate.create_train_state(
+        model.to("cuda", memory_format=torch.channels_last), tr.cfg.lr)
+    fresh, epoch, report = checkpoint.load_checkpoint(ckdir, "smoke", fresh)
+    a, b = tr.state.model.state_dict(), fresh.model.state_dict()
+    oa, ob = tr.state.optimizer.state_dict(), fresh.optimizer.state_dict()
+    check(epoch == 3 and fresh.step == tr.state.step
+          and not report["skipped"] and not report["missing"]
+          and all(torch.equal(a[k], b[k]) for k in a)
+          and all(torch.equal(oa["state"][i][k], ob["state"][i][k])
+                  for i in oa["state"] for k in ("exp_avg", "exp_avg_sq")),
+          "checkpoint round trip changed the state")
+    print(f"[train] checkpoint round trip: {len(a)} tensors, Adam state and "
+          f"step {fresh.step} restored exactly")
+    return trainers, launches
+
+
+def phase_train_vs_cpu(root):
+    """One f32 train step on the card (TF32 off) against the port on the
+    CPU at 128x256, batch 2, from the trainer's seeded init, per mode.
+
+    The random DLA-34 in train mode is ill-conditioned: train-mode
+    BatchNorm removes each channel's mean from the gradient, so most
+    gradients are small remainders of cancelling sums, and f32 on the CPU
+    parts from f64 on the CPU by ~5 % (relative L2, median over tensors;
+    up to ~25 % relative max).  So the check is three-fold:
+      * the loss: relative 1e-4 (f32 against f64 on the CPU: ~2e-5);
+      * the gradients with BatchNorm on its running statistics, which are
+        well-conditioned (CPU f32 against f64: <5e-4): every gradient
+        relative max 2e-3, card against CPU f32;
+      * the train-mode step: each gradient's relative L2 distance to CPU
+        f64 within 4x that of CPU f32 (+1e-3), tensors whose exact gradient
+        is 0 (DCN biases before BatchNorm) left out; the parameters after
+        Adam within 2 lr (Adam's first step moves a weight by ~lr sign(g));
+        the BatchNorm statistics relative max 1e-3."""
+    import torch
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.data import (CityscapesMeta,
+                                           CocoPolyAnnotations, Loader,
+                                           PolydetSampler)
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.losses import polydet_loss
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.train import state as tstate
+    from centerpoly_tpu_torch.train.step import make_train_step, to_device
+    from centerpoly_tpu_torch.train.trainer import loss_config_for
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for mode, kernel in TRAIN_MODES.items():
+        cfg = Config(input_h=128, input_w=256, rep="polar",
+                     poly_loss="l1+iou", poly_order=True, lr=2e-4,
+                     dcn_kernel=kernel)
+        meta = CityscapesMeta(root)
+        sampler = PolydetSampler(cfg, meta, CocoPolyAnnotations(
+            meta.annot_path("train")), img_dir=meta.img_dir("train"))
+        host = next(iter(Loader(sampler, len(sampler), 2, shuffle=False)))
+        loss_cfg = loss_config_for(cfg)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(cfg.seed)
+            sd = create_model(cfg.arch, cfg.heads, cfg.head_conv,
+                              dcn_kernel=kernel).state_dict()
+
+        def model_on(device, dtype=torch.float32):
+            m = create_model(cfg.arch, cfg.heads, cfg.head_conv,
+                             dcn_kernel=kernel)
+            m.load_state_dict(sd)
+            m.to(device, dtype)
+            if device == "cuda":
+                m.to(memory_format=torch.channels_last)
+            return m
+
+        def grads(model, dtype, train):
+            dev = next(model.parameters()).device
+            batch = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in to_device(host, dev).items()}
+            model.train(train).zero_grad(set_to_none=True)
+            outs = [{k: v.permute(0, 2, 3, 1) for k, v in o.items()}
+                    for o in model(batch["input"])]
+            loss, _ = polydet_loss(outs, batch, loss_cfg)
+            loss.backward()
+            return loss.item(), {n: p.grad.detach().cpu().double()
+                                 for n, p in model.named_parameters()
+                                 if p.grad is not None}
+
+        zero_counts()
+        l_card, g_card = grads(model_on("cuda"), torch.float32, False)
+        l_cpu, g_cpu = grads(model_on("cpu"), torch.float32, False)
+        check(g_card.keys() == g_cpu.keys(), "gradients of other tensors")
+        worst = max((rel_max(g_card[n], g_cpu[n]), n) for n in g_cpu)
+        print(f"[train-vs-cpu] {kernel} BatchNorm on running statistics: "
+              f"loss rel {abs(l_card - l_cpu) / abs(l_cpu):.2e}, worst "
+              f"gradient rel_max {worst[0]:.2e} ({worst[1]})")
+        check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu) and worst[0] < 2e-3,
+              f"eval-mode gradients on the card disagree ({kernel})")
+
+        l64, g64 = grads(model_on("cpu", torch.float64), torch.float64, True)
+        steps = {}
+        for dev in ("cuda", "cpu"):
+            st = tstate.create_train_state(model_on(dev), base_lr=cfg.lr)
+            st, stats = make_train_step(loss_cfg)(st, to_device(host, dev))
+            steps[dev] = (stats["loss"].item(),
+                          {n: p.grad.detach().cpu().double()
+                           for n, p in st.model.named_parameters()
+                           if p.grad is not None},
+                          {n: p.detach().cpu() for n, p in
+                           st.model.named_parameters()},
+                          {n: b.detach().cpu() for n, b in
+                           st.model.named_buffers()
+                           if n.endswith(("running_mean", "running_var"))})
+        counts = {k: v for k, v in dcn.launches.items() if v}
+        (lc, gc, pc, bc), (lp, gp, pp, bp) = steps["cuda"], steps["cpu"]
+        check(gc.keys() == gp.keys() == g64.keys(),
+              "gradients of other tensors")
+        norm = {n: g.norm().item() for n, g in g64.items()}
+        top = max(norm.values())
+        ratios, skipped = [], 0
+        for n, ref in g64.items():
+            if norm[n] < 1e-6 * top:
+                skipped += 1
+                continue
+            e_card = (gc[n] - ref).norm().item() / norm[n]
+            e_cpu = (gp[n] - ref).norm().item() / norm[n]
+            ratios.append((e_card - 4 * e_cpu - 1e-3, e_card, e_cpu, n))
+        bad = max(ratios)
+        worst = max(ratios, key=lambda t: t[1])
+        dp = max(((pc[n] - pp[n]).abs().max().item(), n) for n in pp)
+        db = max((rel_max(bc[n], bp[n]), n) for n in bp)
+        print(f"[train-vs-cpu] {kernel} train step: loss card {lc:.6f} cpu "
+              f"{lp:.6f} f64 {l64:.6f} (rel {abs(lc - lp) / abs(lp):.2e}); "
+              f"gradients rel L2 to f64: largest card {worst[1]:.2e} (cpu "
+              f"f32 {worst[2]:.2e}, {worst[3]}), closest to its limit card "
+              f"{bad[1]:.2e} against cpu f32 {bad[2]:.2e} ({bad[3]}), "
+              f"{skipped} exact zeros left "
+              f"out; params after Adam max |diff| {dp[0]:.2e} ({dp[1]}); "
+              f"BatchNorm stats rel_max {db[0]:.2e}; launches {counts}")
+        check(abs(lc - lp) <= 1e-4 * abs(lp) and bad[0] <= 0
+              and dp[0] <= 2 * cfg.lr + 1e-6 and db[0] < 1e-3,
+              f"train step on the card disagrees with the CPU ({kernel})")
+        check(counts.get(f"bwd_{mode}", 0) == 32, f"card runs did not "
+              f"launch the backward kernel 16 times each: {counts}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def bwd_bound_ms(shape, batch) -> tuple[float, str]:
+    """Least time for one f32 backward of a node: operations over the f32
+    peak (gk = W_k g and dW, 2 N 9 Cin Cout each, plus ~32 per (pixel, tap,
+    channel) for the four corners, the three sums and the four scatter
+    products) against bytes (x, offsets, masks, W, b and g read once; dx,
+    d offsets, d masks, dW and db written once) over HBM."""
+    h, w, cin, cout = shape
+    npix = batch * h * w
+    flops = 4.0 * npix * 9 * cin * cout + 32.0 * npix * 9 * cin
+    nbytes = 4.0 * (2 * (npix * cin + npix * 27 + 9 * cin * cout + cout)
+                    + npix * cout)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_loader_workers(root, n_batches=8, workers=4):
+    """The loader as `main` runs it by default: `workers` spawned
+    processes encoding a shuffled epoch of `n_batches` batches of 2048x1024
+    `.npy` frames.  Host time to the first batch (the pool's start) and
+    per batch after it."""
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.data import (CityscapesMeta,
+                                           CocoPolyAnnotations, Loader,
+                                           PolydetSampler)
+    from centerpoly_tpu_torch.data.fixture import write_rect_fixture
+    root = write_rect_fixture(os.path.join(root, "loader"),
+                              n_batches * TRAIN_BATCH, SEED + 1, *FRAME_HW)
+    cfg = Config.from_args(["polydet", *TRAIN_FLAGS])
+    meta = CityscapesMeta(root)
+    sampler = PolydetSampler(cfg, meta, CocoPolyAnnotations(
+        meta.annot_path("train")), img_dir=meta.img_dir("train"))
+    loader = Loader(sampler, len(sampler), TRAIN_BATCH, seed=cfg.seed,
+                    num_workers=workers)
+    t0 = time.perf_counter()
+    stamps = [time.perf_counter() for _ in loader]
+    check(len(stamps) == n_batches, f"loader gave {len(stamps)} batches")
+    per = (stamps[-1] - stamps[0]) / (n_batches - 1)
+    print(f"[train-time] loader with {workers} worker processes: first batch "
+          f"after {1e3 * (stamps[0] - t0):.1f} ms, then {1e3 * per:.1f} ms per "
+          f"batch of {TRAIN_BATCH} ({n_batches} batches, 2048x1024 .npy, "
+          f"{os.cpu_count()} host cores)")
+
+
+def print_halo_bounds():
+    """Worked-out bounds of the TPU kernels not ported yet
+    (kernels/dcn_halo.py, the opt-in `halo:R` mode), at the 16 DLA-34
+    nodes, for a PERF.md row each; nothing runs.  #4 `_fwd_kernel` computes
+    the DCNv2 forward (both axes clamped), so its bound is the forward's:
+    bf16, batch 1, per frame, as `node_bound_ms`.  The backward kernels at
+    the training shape (f32, batch TRAIN_BATCH, per step):
+      #5 `_samp_kernel`, three sweeps (value, d/dy, d/dx hat): each reads x
+         and the offsets once and writes (B, H, W, 9, C) samples; ~8
+         operations per (pixel, tap, channel) a sweep (four corners);
+      #6 `_dx_kernel`: reads gkm (B, H, W, 9, C) and the offsets, writes dx;
+         ~8 operations per (pixel, tap, channel) (four weighted adds)."""
+    fwd = sum(n * node_bound_ms(s)[0] for s, n in NODE_SHAPES.items())
+    samp = dxk = 0.0
+    for (h, w, cin, _), n in NODE_SHAPES.items():
+        npix = TRAIN_BATCH * h * w
+        samp += n * 3 * 1e3 * max(
+            4.0 * (npix * cin + npix * 18 + npix * 9 * cin) / PEAK_BYTES,
+            8.0 * npix * 9 * cin / PEAK_F32_FLOPS)
+        dxk += n * 1e3 * max(
+            4.0 * (npix * 9 * cin + npix * 18 + npix * cin) / PEAK_BYTES,
+            8.0 * npix * 9 * cin / PEAK_F32_FLOPS)
+    print(f"[bound] halo #4 _fwd_kernel {fwd:.4f} ms a frame (bf16, batch 1); "
+          f"#5 _samp_kernel x3 {samp:.4f} ms and #6 _dx_kernel {dxk:.4f} ms "
+          f"a step (f32, batch {TRAIN_BATCH}, both by bytes)")
+
+
+def phase_train_times(trainers):
+    """dcn_bwd per node and per step (f32, batch 4: the training default)
+    beside its bound and the plain backward; train step p50 and images/s;
+    the loader's host time per batch; one profiled step."""
+    import torch
+    from centerpoly_tpu_torch.data import stack_batch
+    from centerpoly_tpu_torch.kernels import dcn
+    from torch.profiler import ProfilerActivity, profile
+
+    # the library defaults a training run gets: f32 matmuls in full f32,
+    # cuDNN convolutions in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    per_step = {m: {"ms": 0.0, "plain_ms": 0.0} for m in TRAIN_MODES}
+    bound_step, ops_share = 0.0, 0.0
+    for i, (shape, n) in enumerate(NODE_SHAPES.items()):
+        args, g = bwd_inputs(shape, torch.float32, SEED + i, TRAIN_BATCH)
+        bound, by = bwd_bound_ms(shape, TRAIN_BATCH)
+        bound_step += n * bound
+        ops_share += n * bound * (by == "operations")
+        for mode, r in (("exact", None), ("rowband", TRAIN_R)):
+            ms = cuda_ms(lambda: dcn.deform_conv2d_backward(*args, g, r), 2, 10)
+            plain = cuda_ms(lambda: dcn.deform_conv2d_backward_ref(*args, g, r),
+                            1, 3)
+            per_step[mode]["ms"] += n * ms
+            per_step[mode]["plain_ms"] += n * plain
+            print(f"[time-bwd] {shape} x{n} b{TRAIN_BATCH} {mode:7s} wrapper "
+                  f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bound:.4f} ms "
+                  f"({by})")
+        del args, g
+    for mode, v in per_step.items():
+        print(f"[time-bwd] {mode} per step (16 nodes, batch {TRAIN_BATCH}): "
+              f"wrapper {v['ms']:.3f} ms  plain {v['plain_ms']:.3f} ms  "
+              f"bound {bound_step:.4f} ms")
+
+    for mode, tr in trainers.items():
+        batch = tr.put(next(iter(tr.train_loader)))
+        for _ in range(2):
+            tr.state, _ = tr.train_step(tr.state, batch)
+        times = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.state, _ = tr.train_step(tr.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        p50 = statistics.median(times)
+        print(f"[train-time] {tr.cfg.dcn_kernel}: step p50 {1e3 * p50:.2f} ms, "
+              f"min {1e3 * min(times):.2f} ms, {TRAIN_BATCH / p50:.2f} images/s "
+              f"(batch {TRAIN_BATCH}, {tr.cfg.input_h}x{tr.cfg.input_w}, f32, "
+              f"8 steps); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    sampler = trainers["exact"].train_loader.sampler
+    host = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        stack_batch([sampler(i % len(sampler))
+                     for i in range(k * TRAIN_BATCH, (k + 1) * TRAIN_BATCH)])
+        host.append(time.perf_counter() - t0)
+    print(f"[train-time] loader host time per batch of {TRAIN_BATCH} "
+          f"(2048x1024 .npy frames, one process): mean "
+          f"{1e3 * statistics.mean(host):.1f} ms over 3 batches")
+
+    tr = trainers["exact"]
+    batch = tr.put(next(iter(tr.train_loader)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.state, _ = tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        print("[train-profile] no device time in the trace: busy share not "
+              "measured")
+    else:
+        busy = sum(r[0] for r in rows)
+        fwd = sum(r[0] for r in rows if "dcn_fwd" in r[2])
+        bwd = sum(r[0] for r in rows if "dcn_bwd" in r[2])
+        print(f"[train-profile] one off step: wall {wall_ms:.2f} ms, device "
+              f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f} %), dcn_fwd "
+              f"{fwd:.2f} ms, dcn_bwd kernel {bwd:.2f} ms "
+              f"({100 * (fwd + bwd) / busy:.1f} % of device time)")
+        for ms, n, key in rows[:15]:
+            print(f"[train-profile] {ms:8.3f} ms {n:4d} calls  {key[:90]}")
+    by = "operations" if ops_share >= bound_step / 2 else "bytes"
+    return per_step, bound_step, by
+
+
 def main() -> int:
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from centerpoly_tpu_torch.data.fixture import write_rect_fixture
+
     name, count = phase_card()
     phase_build()
     errs = phase_kernel_vs_plain()
     det, frames, launches = phase_slice()
     per_frame, bound_frame, by = phase_times(det, frames)
     phase_profile(det, frames)
-    kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[mode], "launches": launches[mode],
-                "max_abs_err": errs[mode], "ms": per_frame[mode]["ms"],
+    del det
+    bwd_errs = phase_bwd_vs_plain()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        write_rect_fixture(root, 2 * TRAIN_BATCH, SEED, *FRAME_HW,
+                           splits=("train", "val"))
+        trainers, bwd_launches = phase_train(root)
+        phase_train_vs_cpu(root)
+        per_step, bound_step, bwd_by = phase_train_times(trainers)
+        phase_loader_workers(root)
+    print_halo_bounds()
+    kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
+                "source": SOURCES["dcn_fwd"],
+                "replaces": REPLACES[f"dcn_fwd[{mode}]"],
+                "launches": launches[mode], "max_abs_err": errs[mode],
+                "ms": per_frame[mode]["ms"],
                 "plain_ms": per_frame[mode]["plain_ms"],
                 "bound_ms": bound_frame, "bound_by": by, "library_ms": None}
                for mode in ("exact", "rowband")]
+    kernels += [{"name": f"dcn_bwd[{mode}]", "route": "cuda",
+                 "source": SOURCES["dcn_bwd"],
+                 "replaces": REPLACES[f"dcn_bwd[{mode}]"],
+                 "launches": bwd_launches[mode], "max_abs_err": bwd_errs[mode],
+                 "ms": per_step[mode]["ms"],
+                 "plain_ms": per_step[mode]["plain_ms"],
+                 "bound_ms": bound_step, "bound_by": bwd_by,
+                 "library_ms": None}
+                for mode in ("exact", "rowband")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -9,6 +9,9 @@ Tolerances, as relative maxima max|got - ref| / max|ref|: 1e-4 in f32
 with TF32 off (the same f32 arithmetic summed in another order); 2e-2 in
 bf16, where the plain version rounds the bilinear fractions and corner
 products to bf16 (deform_conv.py:122) and the kernel keeps them in f32.
+The backward kernel: 1e-4 (dx, dW, dmask, db) and 1e-3 (d offsets,
+differences of neighbouring samples, so their relative error is that of
+the samples over the size of the difference) in f32; 3e-2 in bf16.
 """
 import numpy as np
 import pytest
@@ -87,6 +90,72 @@ def test_wrapper_rejects(cuda):
         dcn.deform_conv2d(x, off.cpu(), mask, wt, bias)
     with pytest.raises(ValueError):
         dcn.deform_conv2d(x, off[..., :9].contiguous(), mask, wt, bias)
+
+
+BWD_NAMES = ("dx", "doffsets", "dmasks", "dweights", "dbias")
+
+
+def _bwd_rel(got, ref):
+    return {n: _rel(a, b) for n, a, b in zip(BWD_NAMES, got, ref)}
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 40, 70), (1, 16, 32, 64, 64),
+                                   (1, 9, 13, 3, 5)])
+@pytest.mark.parametrize("dtype,tol,tol_off", [(torch.float32, 1e-4, 1e-3),
+                                               (torch.bfloat16, 3e-2, 3e-2)])
+@pytest.mark.parametrize("r", [None, 2])
+def test_backward_kernel_matches_plain(cuda, shape, dtype, tol, tol_off, r):
+    args = _inputs(cuda, dtype, *shape)
+    g = torch.randn(*shape[:3], shape[4], generator=torch.Generator()
+                    .manual_seed(1)).to(cuda, dtype)
+    key = "bwd_exact" if r is None else "bwd_rowband"
+    before = dcn.launches[key]
+    got = dcn.deform_conv2d_backward(*args, g, max_offset_y=r)
+    torch.cuda.synchronize()
+    assert dcn.launches[key] == before + 1
+    ref = dcn.deform_conv2d_backward_ref(*args, g, max_offset_y=r)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    rel = _bwd_rel(got, ref)
+    assert rel["doffsets"] < tol_off, rel
+    assert max(v for k, v in rel.items() if k != "doffsets") < tol, rel
+
+
+@pytest.mark.parametrize("case", ["zero", "at_r", "beyond_r"])
+def test_backward_kernel_tie_rules(cuda, case):
+    """All offsets 0 (the offset convs' init: every sample at an integer
+    position), y-offsets exactly at +-R (gradient 0.5), beyond R (0)."""
+    x, off, mask, wt, bias = _inputs(cuda, torch.float32, 2, 6, 9, 16, 8)
+    off = {"zero": torch.zeros_like(off),
+           "at_r": torch.where(off > 0, 2.0, -2.0),
+           "beyond_r": off * 3}[case]
+    g = torch.randn(2, 6, 9, 8, generator=torch.Generator()
+                    .manual_seed(2)).to(cuda)
+    for r in (None, 2):
+        got = dcn.deform_conv2d_backward(x, off, mask, wt, bias, g, r)
+        ref = dcn.deform_conv2d_backward_ref(x, off, mask, wt, bias, g, r)
+        rel = _bwd_rel(got, ref)
+        assert max(rel.values()) < 1e-3, (r, rel)
+
+
+def test_dcnv2_on_card_carries_autograd(cuda):
+    """A CUDA DCNv2 output has a grad_fn; backward() launches the backward
+    kernel and reaches the weights and the offset conv."""
+    from centerpoly_tpu_torch.models.deform_conv import DCNv2
+    layer = DCNv2(16, 8, dcn_kernel="rowband:2").to(cuda)
+    x = torch.randn(2, 16, 6, 9, device=cuda, requires_grad=True)
+    out = layer(x)
+    assert out.grad_fn is not None
+    before = dict(dcn.launches)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert dcn.launches["bwd_rowband"] == before["bwd_rowband"] + 1
+    assert dcn.launches["bwd_exact"] == before["bwd_exact"]
+    for p in (layer.weight, layer.bias, layer.conv_offset_mask.weight,
+              layer.conv_offset_mask.bias, x):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all())
+    assert float(layer.weight.grad.abs().max()) > 0
+    assert float(layer.conv_offset_mask.weight.grad.abs().max()) > 0
 
 
 @pytest.mark.parametrize("mode,key", [("rowband:6", "rowband"),

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it (every module) pulls in
-neither JAX nor the JAX package, and no source names either."""
+neither JAX nor the JAX package, and no source names either; nor does
+chip_smoke.py, which runs where JAX is not installed."""
 import os
 import subprocess
 import sys
@@ -42,6 +43,14 @@ def _sources():
 @pytest.mark.parametrize("path", sorted(_sources()),
                          ids=lambda p: os.path.relpath(p, PKG))
 def test_source_names_no_jax(path):
+    _assert_names_no_jax(path)
+
+
+def test_chip_smoke_names_no_jax():
+    _assert_names_no_jax(os.path.join(ROOT, "chip_smoke.py"))
+
+
+def _assert_names_no_jax(path):
     with open(path) as f:
         for n, line in enumerate(f, 1):
             code = line.split("#", 1)[0]
