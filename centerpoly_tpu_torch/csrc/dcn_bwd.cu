@@ -1,18 +1,23 @@
 // DCNv2 backward (modulated deformable 3x3 conv, stride 1, zero padding).
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 //   centerpoly_tpu/kernels/dcn_rowband.py::_rowband_bwd_kernel
 //     (the fused row-band backward; its XLA remainder is _pallas_bwd)
-// and, with CLAMP_Y=false, the exact mode's backward, which the JAX
+//   centerpoly_tpu/kernels/dcn_halo.py:173 _samp_kernel (the `halo:R`
+//     backward's three sweeps: value samples and the two hat-derivative
+//     samples that _pallas_bwd's einsums turn into dW, dmask, d offsets)
+//   centerpoly_tpu/kernels/dcn_halo.py:231 _dx_kernel (its dx sweep)
+// and, with the clamp off, the exact mode's backward, which the JAX
 // package takes from XLA autodiff of models/deform_conv.py::deform_conv2d
-// (_dc_bwd).  It computes what kernel #3 computes, not how: the band
-// tensor, the one-hot column matrices B2 and the D shifted slice-adds
-// that form dx exist only because Mosaic could not gather or scatter;
-// on Hopper each tap's four bilinear corners are read directly and dx is
-// a scatter-add with f32 atomics.
+// (_dc_bwd).  One kernel templated on the clamp mode (none / y / xy)
+// computes what they compute, not how: the band tensor, the one-hot
+// column matrices B2 and the D shifted slice-adds of kernel #3, and the
+// (2R+3)^2 rolls and reverse rolls of the halo sweeps, exist only because
+// Mosaic could not gather or scatter; on Hopper each tap's four bilinear
+// corners are read directly and dx is a scatter-add with f32 atomics.
 //
-// Inputs: x (npix, C) in T, the raw f32 offsets (npix, 18) (y-clamped
-// here to [-R, R] when CLAMP_Y, exactly as csrc/dcn_fwd.cu does), the
+// Inputs: x (npix, C) in T, the raw f32 offsets (npix, 18) (clamped here
+// to [-R, R], y only or both axes, exactly as csrc/dcn_fwd.cu does), the
 // masks (npix, 9), and gk (npix, 9, C) f32 = W_k @ g for every tap (one
 // matmul on the caller's side, dcn_rowband.py:309).  Per (pixel, tap):
 //   S_c      = sum_q w_q x[corner_q, c]          (unmodulated sample)
@@ -24,9 +29,11 @@
 // Out-of-image corners read as 0.  fy, fx are the fractions of floor():
 // at an integer position the derivative is that of the floor cell (the
 // hat derivative is -1 there, not 0, dcn_rowband.py:246-253), which is
-// what autodiff of the JAX oracle gives; the y-offset gradient is
-// multiplied by the clamp's pass-through (1 / 0.5 at +-R / 0) on the
-// caller's side.
+// what autodiff of the JAX oracle gives and the one-sided hat derivative
+// of the halo sweeps (dcn_halo.py:207-222).  The clamp's pass-through is
+// applied on the caller's side: y-offset gradients times 1 / 0.5 at +-R /
+// 0 beyond (rowband), or every offset gradient zeroed where |o| >= R
+// (halo, dcn_halo.py:442-450).
 //
 // Design (simple first): one warp per (pixel, tap), lanes on consecutive
 // channels, so the NHWC corner rows, the gk row, the samp row and the dx
@@ -35,13 +42,15 @@
 // integer offsets, e.g. at the zero init of the offset convs) issues no
 // atomics.
 //
-// What bounds it on an H100: per (pixel, tap) it reads 4 corner rows and
-// one f32 gk row and writes one f32 samp row plus 4 atomic rows: the
-// f32 gk and samp rows (2 x 36 B a pixel-channel) dominate the bytes, and
+// What bounds it on an H100 (in every mode: the clamp moves no byte): per
+// (pixel, tap) it reads 4 corner rows and one f32 gk row and writes one
+// f32 samp row plus 4 atomic rows: the f32 gk and samp rows (2 x 36 B a pixel-channel) dominate the bytes, and
 // the ~36 atomics that land on each dx element are served by the L2.  It
-// sits far below the ~295 FLOP/byte ridge, so bytes bound it; fusing gk =
-// W_k @ g and dW into the kernel (no gk or samp in device memory) is the
-// later step.
+// sits far below the ~295 FLOP/byte ridge, so bytes bound it.  The whole
+// backward (this kernel and the f32 GEMMs gk = W_k @ g and dW around it)
+// is bound by those GEMMs' operations: 3.7185 ms a step of the 16 DLA-34
+// nodes at 512x1024, batch 4, f32.  Fusing gk and dW into the kernel (no
+// gk or samp in device memory, `wgmma`) is the later step.
 //
 // Plain C interface, bound from Python with ctypes
 // (centerpoly_tpu_torch/kernels/dcn.py).  Pointers are device pointers;
@@ -67,7 +76,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, bool CLAMP_Y>
+// clamp modes: which offset axes are clamped to [-R, R]
+constexpr int CLAMP_NONE = 0, CLAMP_Y = 1, CLAMP_XY = 2;
+
+template <typename T, int CLAMP>
 __global__ void __launch_bounds__(THREADS)
 dcn_bwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
                const float* __restrict__ off,  // (B, H, W, 18) raw (dy, dx)
@@ -90,8 +102,9 @@ dcn_bwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
   const int yy = hw / W;
   const int xx = hw % W;
   float oy = off[(size_t)n * 18 + 2 * k];
-  const float ox = off[(size_t)n * 18 + 2 * k + 1];
-  if (CLAMP_Y) oy = fminf(fmaxf(oy, -R), R);
+  float ox = off[(size_t)n * 18 + 2 * k + 1];
+  if (CLAMP != CLAMP_NONE) oy = fminf(fmaxf(oy, -R), R);
+  if (CLAMP == CLAMP_XY) ox = fminf(fmaxf(ox, -R), R);
   // same association as the forward and the JAX oracle
   const float sy = (float)(yy + k / 3 - 1) + oy;
   const float sx = (float)(xx + k % 3 - 1) + ox;
@@ -146,41 +159,54 @@ dcn_bwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
   }
 }
 
+template <typename T, int CLAMP>
+void launch_mode(const void* x, const void* off, const void* mask,
+                 const void* gk, void* samp, void* doff, void* dmask,
+                 void* dx, int npix, int H, int W, int C, float R,
+                 cudaStream_t stream) {
+  const long long warps = (long long)npix * 9;
+  const dim3 grid((unsigned)((warps * 32 + THREADS - 1) / THREADS));
+  dcn_bwd_kernel<T, CLAMP><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (const float*)off, (const float*)mask, (const float*)gk,
+      (float*)samp, (float*)doff, (float*)dmask, (float*)dx, npix, H, W, C,
+      R);
+}
+
 template <typename T>
 void launch(const void* x, const void* off, const void* mask, const void* gk,
             void* samp, void* doff, void* dmask, void* dx, int npix, int H,
-            int W, int C, int clamp_y, float R, cudaStream_t stream) {
-  const long long warps = (long long)npix * 9;
-  const dim3 grid((unsigned)((warps * 32 + THREADS - 1) / THREADS));
-  if (clamp_y)
-    dcn_bwd_kernel<T, true><<<grid, THREADS, 0, stream>>>(
-        (const T*)x, (const float*)off, (const float*)mask,
-        (const float*)gk, (float*)samp, (float*)doff, (float*)dmask,
-        (float*)dx, npix, H, W, C, R);
+            int W, int C, int clamp, float R, cudaStream_t stream) {
+  if (clamp == CLAMP_XY)
+    launch_mode<T, CLAMP_XY>(x, off, mask, gk, samp, doff, dmask, dx, npix,
+                             H, W, C, R, stream);
+  else if (clamp == CLAMP_Y)
+    launch_mode<T, CLAMP_Y>(x, off, mask, gk, samp, doff, dmask, dx, npix, H,
+                            W, C, R, stream);
   else
-    dcn_bwd_kernel<T, false><<<grid, THREADS, 0, stream>>>(
-        (const T*)x, (const float*)off, (const float*)mask,
-        (const float*)gk, (float*)samp, (float*)doff, (float*)dmask,
-        (float*)dx, npix, H, W, C, R);
+    launch_mode<T, CLAMP_NONE>(x, off, mask, gk, samp, doff, dmask, dx, npix,
+                               H, W, C, R, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x only; everything else is f32).
-// clamp_y: 0 = exact sampling, 1 = y-offsets clamped to [-R, R].
+// clamp: 0 = exact sampling, 1 = y-offsets clamped to [-R, R], 2 = both
+// axes clamped to [-R, R]; another value is refused (cudaErrorInvalidValue).
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int dcn_bwd(const void* x, const void* off, const void* mask,
                        const void* gk, void* samp, void* doff, void* dmask,
                        void* dx, int B, int H, int W, int C, int dtype,
-                       int clamp_y, float R, void* stream) {
+                       int clamp, float R, void* stream) {
+  if (clamp < CLAMP_NONE || clamp > CLAMP_XY)
+    return (int)cudaErrorInvalidValue;
   const int npix = B * H * W;
   if (npix > 0 && C > 0) {
     if (dtype == 1)
       launch<__nv_bfloat16>(x, off, mask, gk, samp, doff, dmask, dx, npix, H,
-                            W, C, clamp_y, R, (cudaStream_t)stream);
+                            W, C, clamp, R, (cudaStream_t)stream);
     else
       launch<float>(x, off, mask, gk, samp, doff, dmask, dx, npix, H, W, C,
-                    clamp_y, R, (cudaStream_t)stream);
+                    clamp, R, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

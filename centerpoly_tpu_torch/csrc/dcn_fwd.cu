@@ -1,14 +1,22 @@
 // DCNv2 forward (modulated deformable 3x3 conv, stride 1, zero padding).
 //
-// Replaces two TPU kernels of the JAX package:
+// Replaces three TPU kernels of the JAX package:
 //   centerpoly_tpu/kernels/dcn_pallas.py::_kernel        (exact sampling)
 //   centerpoly_tpu/kernels/dcn_rowband.py::_rowband_kernel (y-offsets
 //     clamped to [-R, R], x exact; the `rowband:R` inference default)
-// as one kernel templated on the clamp mode.  It computes what they
-// compute, not how: the row-band kernel's one-hot column matmul, its band
-// tensor and its lane packing exist only because Mosaic could not compile
-// a gather (dcn_rowband.py:3-7); Hopper gathers natively, so both modes
-// sample the four bilinear corners directly.
+//   centerpoly_tpu/kernels/dcn_halo.py:124 _fwd_kernel   (both offset axes
+//     clamped to [-R, R]; the opt-in `halo:R` mode)
+// as one kernel templated on the clamp mode (none / y / xy).  It computes
+// what they compute, not how: the row-band kernel's one-hot column matmul,
+// its band tensor and its lane packing, and the halo kernel's sweep of
+// (2R+3)^2 rolled copies of a zero-padded flat map weighted by separable
+// hat functions, exist only because Mosaic could not compile a gather
+// (dcn_rowband.py:3-7, dcn_halo.py:5-8).  The hat sum over integer
+// displacements is zero-padded bilinear sampling, and Hopper gathers
+// natively, so every mode samples the four bilinear corners directly; the
+// halo mode adds one clamp of the x-offset.  (The halo kernel rounds the
+// masked samples to the activation type before its contraction; this one
+// contracts them in f32 in every mode.)
 //
 // Design (simple first):
 //   * a block owns TP output pixels (flattened over B*H*W) and TC output
@@ -24,18 +32,21 @@
 //     thread, float4 shared loads);
 //   * it adds the bias and writes the NHWC output in the input's type.
 //
-// What bounds it on an H100: the 16 DCN nodes of DLA-34 at 512x1024 need
-// ~28 GFLOP a frame (~28 us at the bf16 tensor-core peak) and move ~85 MB
-// (~25 us at 3.35 TB/s): the wide-channel nodes sit above the ~295
-// FLOP/byte ridge, the 64-channel stride-4 nodes below it, where the f32
-// offsets and masks (108 B a pixel) outweigh the bf16 activations.  This
-// version contracts on the CUDA cores in f32 (67 TFLOP/s peak, less the
-// shared-memory operand traffic), not on the tensor cores, so it runs far
-// from that bound; the gather is also redone once per output-channel
-// tile.  Later work: stage the sampled tile in bf16 and
-// contract it with `wgmma` (tile of 64 pixels x Cout, K = CK), keep all of
-// Cout in one block so each sample is gathered once, and double-buffer the
-// W_k slices with TMA while the warps gather the next chunk.
+// What bounds it on an H100, in every mode (the clamp costs two
+// instructions a tap and moves no byte): the 16 DCN nodes of DLA-34 at
+// 512x1024 need ~28 GFLOP a frame (~28 us at the bf16 tensor-core peak)
+// and move ~85 MB (~25 us at 3.35 TB/s); node by node the larger of the
+// two sums to 0.0345 ms a bf16 frame at batch 1, mostly bytes: the
+// wide-channel nodes sit above the ~295 FLOP/byte ridge, the 64-channel
+// stride-4 nodes below it, where the f32 offsets and masks (108 B a
+// pixel) outweigh the bf16 activations.  This version contracts on the
+// CUDA cores in f32 (67 TFLOP/s peak, less the shared-memory operand
+// traffic), not on the tensor cores, so it runs far from that bound; the
+// gather is also redone once per output-channel tile.  Later work: stage
+// the sampled tile in bf16 and contract it with `wgmma` (tile of 64 pixels
+// x Cout, K = CK), keep all of Cout in one block so each sample is gathered
+// once, and double-buffer the W_k slices with TMA while the warps gather
+// the next chunk.
 //
 // Plain C interface, bound from Python with ctypes
 // (centerpoly_tpu_torch/kernels/dcn.py).  Pointers are device pointers;
@@ -67,7 +78,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T, bool CLAMP_Y>
+// clamp modes: which offset axes are clamped to [-R, R]
+constexpr int CLAMP_NONE = 0, CLAMP_Y = 1, CLAMP_XY = 2;
+
+template <typename T, int CLAMP>
 __global__ void __launch_bounds__(THREADS)
 dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
                const float* __restrict__ off,  // (B, H, W, 18) (dy, dx) per tap
@@ -98,8 +112,9 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
       const int yy = hw / W;
       const int xx = hw % W;
       float oy = off[(size_t)n * 18 + 2 * k];
-      const float ox = off[(size_t)n * 18 + 2 * k + 1];
-      if (CLAMP_Y) oy = fminf(fmaxf(oy, -R), R);
+      float ox = off[(size_t)n * 18 + 2 * k + 1];
+      if (CLAMP != CLAMP_NONE) oy = fminf(fmaxf(oy, -R), R);
+      if (CLAMP == CLAMP_XY) ox = fminf(fmaxf(ox, -R), R);
       // same association as the JAX oracle: (grid + tap) + offset
       const float sy = (float)(yy + k / 3 - 1) + oy;
       const float sx = (float)(xx + k % 3 - 1) + ox;
@@ -196,37 +211,50 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
   }
 }
 
+template <typename T, int CLAMP>
+void launch_mode(const void* x, const void* off, const void* mask,
+                 const void* w, const void* bias, void* out, int npix, int H,
+                 int W, int C, int Cout, float R, cudaStream_t stream) {
+  const dim3 grid((npix + TP - 1) / TP, (Cout + TC - 1) / TC);
+  dcn_fwd_kernel<T, CLAMP><<<grid, THREADS, 0, stream>>>(
+      (const T*)x, (const float*)off, (const float*)mask, (const T*)w,
+      (const T*)bias, (T*)out, npix, H, W, C, Cout, R);
+}
+
 template <typename T>
 void launch(const void* x, const void* off, const void* mask, const void* w,
             const void* bias, void* out, int npix, int H, int W, int C,
-            int Cout, int clamp_y, float R, cudaStream_t stream) {
-  const dim3 grid((npix + TP - 1) / TP, (Cout + TC - 1) / TC);
-  if (clamp_y)
-    dcn_fwd_kernel<T, true><<<grid, THREADS, 0, stream>>>(
-        (const T*)x, (const float*)off, (const float*)mask, (const T*)w,
-        (const T*)bias, (T*)out, npix, H, W, C, Cout, R);
+            int Cout, int clamp, float R, cudaStream_t stream) {
+  if (clamp == CLAMP_XY)
+    launch_mode<T, CLAMP_XY>(x, off, mask, w, bias, out, npix, H, W, C, Cout,
+                             R, stream);
+  else if (clamp == CLAMP_Y)
+    launch_mode<T, CLAMP_Y>(x, off, mask, w, bias, out, npix, H, W, C, Cout,
+                            R, stream);
   else
-    dcn_fwd_kernel<T, false><<<grid, THREADS, 0, stream>>>(
-        (const T*)x, (const float*)off, (const float*)mask, (const T*)w,
-        (const T*)bias, (T*)out, npix, H, W, C, Cout, R);
+    launch_mode<T, CLAMP_NONE>(x, off, mask, w, bias, out, npix, H, W, C,
+                               Cout, R, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, bias and out share it).
-// clamp_y: 0 = exact sampling, 1 = y-offsets clamped to [-R, R].
+// clamp: 0 = exact sampling, 1 = y-offsets clamped to [-R, R], 2 = both
+// axes clamped to [-R, R]; another value is refused (cudaErrorInvalidValue).
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int dcn_fwd(const void* x, const void* off, const void* mask,
                        const void* w, const void* bias, void* out, int B,
-                       int H, int W, int C, int Cout, int dtype, int clamp_y,
+                       int H, int W, int C, int Cout, int dtype, int clamp,
                        float R, void* stream) {
+  if (clamp < CLAMP_NONE || clamp > CLAMP_XY)
+    return (int)cudaErrorInvalidValue;
   const int npix = B * H * W;
   if (npix > 0 && Cout > 0) {
     if (dtype == 1)
       launch<__nv_bfloat16>(x, off, mask, w, bias, out, npix, H, W, C, Cout,
-                            clamp_y, R, (cudaStream_t)stream);
+                            clamp, R, (cudaStream_t)stream);
     else
-      launch<float>(x, off, mask, w, bias, out, npix, H, W, C, Cout, clamp_y,
+      launch<float>(x, off, mask, w, bias, out, npix, H, W, C, Cout, clamp,
                     R, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();

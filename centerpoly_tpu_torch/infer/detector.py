@@ -9,9 +9,12 @@ poly..., depth] in source-image coordinates.
 On the device: the axis-aligned affine warp + normalisation of the full
 frame, the model, sigmoid, optional flip average and the top-K decode.
 On the host: the inverse affine back to source coordinates and the merge.
+`run_batch(images)` runs one forward over a stack of frames;
+`run_stream(frames)` pipelines a stream of them (several in flight).
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, Mapping
 
 import numpy as np
@@ -181,6 +184,67 @@ class BaseDetector:
         return {"results": results, "tot": sum(times.values()),
                 **{k: times.get(k, 0.0) for k in
                    ("load", "pre", "net", "dec", "post", "merge")}}
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """Host array -> the device without waiting: on the card through
+        pinned memory with non_blocking=True (a pageable copy would wait
+        for the frames already in flight)."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _dispatch(self, frame: torch.Tensor, scale: float):
+        """Pre-process, forward and decode one (1, H, W, 3) uint8 frame on
+        the device at one scale, without waiting for it.  Returns
+        (detections on the host, CUDA event or None, meta): on the card the
+        detections are copied to pinned host memory behind an event and
+        are valid once it has completed."""
+        trans, meta = self._scaled_trans(*frame.shape[1:3], scale)
+        images = self._pre_device(frame, self._upload(trans.astype(np.float32)),
+                                  (meta["inp_h"], meta["inp_w"]))
+        dets = self._process_device(images)
+        if self.device.type != "cuda":
+            return dets.cpu(), None, meta
+        host = torch.empty(dets.shape, dtype=dets.dtype, pin_memory=True)
+        host.copy_(dets, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done, meta
+
+    @torch.no_grad()
+    def run_stream(self, frames, depth: int = 2):
+        """Pipelined single-stream serving: a generator that keeps up to
+        `depth` frames in flight on the device while the host
+        post-processes earlier ones, yielding each frame's merged results
+        ({class_id: (n, D) array}, what `run(frame)["results"]` holds) in
+        order.
+
+        Frames go up through pinned memory and detections come back into
+        pinned memory behind a CUDA event, so dispatching frame i+1
+        overlaps the device's work on frame i and the host's
+        post-processing of frame i-1; a frame is waited for only on its
+        own event (the JAX package's run_stream, infer/detector.py:240-271,
+        where jax dispatch is asynchronous).  Debug views are not rendered
+        in stream mode."""
+        inflight: collections.deque = collections.deque()
+
+        def finish(entry):
+            detections = []
+            for host, done, meta, scale in entry:
+                if done is not None:
+                    done.synchronize()      # the only blocking point
+                detections.append(self._post(host.numpy(), meta, scale))
+            return self.merge_outputs(detections)
+
+        for image in frames:
+            if len(inflight) >= max(1, depth):
+                yield finish(inflight.popleft())
+            frame = self._upload(np.asarray(image))[None]
+            inflight.append([(*self._dispatch(frame, s), s)
+                             for s in self.scales])
+        while inflight:
+            yield finish(inflight.popleft())
 
     @torch.no_grad()
     def run_batch(self, images) -> list:

@@ -9,11 +9,23 @@
   weights  (3, 3, Cin, Cout)
   bias     (Cout,)
 
-`max_offset_y=None` is the exact semantics of kernels/dcn_pallas.py; an
-integer R is the `rowband:R` semantics of kernels/dcn_rowband.py: y-offsets
-clamped to [-R, R], x exact, samples outside the image zero.  The clamp
-passes a y-offset gradient of 1 inside the band, 0.5 at exactly +-R and 0
-beyond (jnp.clip's tie rule, dcn_rowband.py:458-465).
+The clamp is set by two keywords that exclude each other (both at once is
+a ValueError):
+  * neither given: the exact semantics of kernels/dcn_pallas.py;
+  * `max_offset_y=R`: the `rowband:R` semantics of kernels/dcn_rowband.py,
+    y-offsets clamped to [-R, R], x exact.  The clamp passes a y-offset
+    gradient of 1 inside the band, 0.5 at exactly +-R and 0 beyond
+    (jnp.clip's tie rule, dcn_rowband.py:458-465);
+  * `max_offset=R`: the `halo:R` semantics of kernels/dcn_halo.py, both
+    offset axes clamped to [-R, R].  Its offset gradients are those at the
+    clamped offsets, zeroed on each component where |o| >= R, the exact
+    bound included: the rule of the halo kernel's backward
+    (dcn_halo.py:442-450).  The JAX oracle `deform_conv2d_halo_ref` and
+    the JAX module's XLA fallback (what runs off the TPU) pass 0.5 of the
+    one-sided derivative at exactly +-R instead (jnp.clip's tie rule).  The
+    port follows the kernel on the card and in its plain CPU version alike,
+    so the function does not depend on the device.
+Samples outside the image read zero in every mode.
 
 On a CUDA tensor the forward launches csrc/dcn_fwd.cu and the backward
 csrc/dcn_bwd.cu (each built with nvcc for sm_90a at first use, bound
@@ -41,9 +53,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel launches by kernel and clamp mode; only the CUDA branches count,
 # so a run can show that its DCN nodes went through the kernels
-launches = {"exact": 0, "rowband": 0, "bwd_exact": 0, "bwd_rowband": 0}
+launches = {"exact": 0, "rowband": 0, "halo": 0,
+            "bwd_exact": 0, "bwd_rowband": 0, "bwd_halo": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# clamp mode -> the kernels' `clamp` argument (none / y / xy)
+_CLAMP_CODE = {"exact": 0, "rowband": 1, "halo": 2}
 _libs: dict = {}
 
 
@@ -149,16 +164,63 @@ def clamp_y(offsets: torch.Tensor, r: float) -> torch.Tensor:
     return _ClampY.apply(offsets, float(r))
 
 
+def halo_keep(offsets: torch.Tensor, r: float) -> torch.Tensor:
+    """The halo clamp's pass-through: 1 where -r < o < r, else 0, the
+    exact bound included (dcn_halo.py:442-450)."""
+    return ((offsets > -r) & (offsets < r)).to(offsets.dtype)
+
+
+class _ClampXY(torch.autograd.Function):
+    """Clamp every offset component to [-r, r], with the halo kernel's
+    gradient: 0 wherever the clamp saturates, at exactly +-r too."""
+
+    @staticmethod
+    def forward(ctx, offsets, r):
+        ctx.save_for_backward(offsets)
+        ctx.r = r
+        return torch.minimum(torch.maximum(offsets, offsets.new_tensor(-r)),
+                             offsets.new_tensor(r))
+
+    @staticmethod
+    def backward(ctx, g):
+        (offsets,) = ctx.saved_tensors
+        return g * halo_keep(offsets, ctx.r), None
+
+
+def clamp_xy(offsets: torch.Tensor, r: float) -> torch.Tensor:
+    """Both-axes clamp of the `halo:R` mode with its tie rule."""
+    return _ClampXY.apply(offsets, float(r))
+
+
+def clamp_mode(max_offset_y: int | None = None,
+               max_offset: int | None = None) -> tuple[str, float | None]:
+    """The clamp keywords -> (mode, R): ("exact", None), ("rowband", R) or
+    ("halo", R).  The two keywords exclude each other."""
+    if max_offset_y is not None and max_offset is not None:
+        raise ValueError("dcn: give max_offset_y (rowband) or max_offset "
+                         "(halo), not both")
+    if max_offset is not None:
+        return "halo", float(max_offset)
+    if max_offset_y is not None:
+        return "rowband", float(max_offset_y)
+    return "exact", None
+
+
 def deform_conv2d_ref(x, offsets, masks, weights, bias=None,
-                      max_offset_y: int | None = None) -> torch.Tensor:
+                      max_offset_y: int | None = None,
+                      max_offset: int | None = None) -> torch.Tensor:
     """Plain PyTorch DCNv2 forward with the arithmetic of the JAX
     `deform_conv2d`, including the rounding of the fractions fy, fx to
-    x.dtype; with `max_offset_y` the offsets are y-clamped first.  Its
-    autograd is the JAX package's: floor has no gradient, so a sample at
-    an integer position differentiates on its floor cell (hat derivative
-    -1 there, not 0)."""
-    if max_offset_y is not None:
-        offsets = clamp_y(offsets, max_offset_y)
+    x.dtype; with `max_offset_y` the offsets are y-clamped first, with
+    `max_offset` clamped on both axes.  Its autograd is the JAX package's:
+    floor has no gradient, so a sample at an integer position
+    differentiates on its floor cell (hat derivative -1 there, not 0); the
+    clamps pass their gradients by their tie rules (module docstring)."""
+    mode, r = clamp_mode(max_offset_y, max_offset)
+    if mode == "rowband":
+        offsets = clamp_y(offsets, r)
+    elif mode == "halo":
+        offsets = clamp_xy(offsets, r)
     b, h, w, cin = x.shape
     cout = weights.shape[-1]
     dev = x.device
@@ -199,13 +261,15 @@ def deform_conv2d_ref(x, offsets, masks, weights, bias=None,
 
 
 def deform_conv2d_backward_ref(x, offsets, masks, weights, bias, g,
-                               max_offset_y: int | None = None):
+                               max_offset_y: int | None = None,
+                               max_offset: int | None = None):
     """Plain backward: (dx, doffsets, dmasks, dweights, dbias) by autograd
     through `deform_conv2d_ref`, on any device."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True)
                   for t in (x, offsets, masks, weights, bias)]
-        out = deform_conv2d_ref(*leaves, max_offset_y=max_offset_y)
+        out = deform_conv2d_ref(*leaves, max_offset_y=max_offset_y,
+                                max_offset=max_offset)
         return torch.autograd.grad(out, leaves, g)
 
 
@@ -235,12 +299,13 @@ def _check(x, offsets, masks, weights, bias, g=None):
             raise ValueError(f"dcn: {name} must be contiguous")
 
 
-def _forward(x, offsets, masks, weights, bias, max_offset_y):
+def _forward(x, offsets, masks, weights, bias, max_offset_y, max_offset):
     """The forward on x's device: the kernel on CUDA, the plain version on
     the CPU."""
+    mode, r = clamp_mode(max_offset_y, max_offset)
     if x.device.type == "cpu":
         return deform_conv2d_ref(x, offsets, masks, weights, bias,
-                                 max_offset_y)
+                                 max_offset_y, max_offset)
     if x.device.type != "cuda":
         raise ValueError(f"dcn_fwd: no kernel for device {x.device}")
     _check(x, offsets, masks, weights, bias)
@@ -253,28 +318,32 @@ def _forward(x, offsets, masks, weights, bias, max_offset_y):
         err = lib.dcn_fwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
                           weights.data_ptr(), bias.data_ptr(), out.data_ptr(),
                           b, h, w, cin, cout, _DTYPE_CODE[x.dtype],
-                          int(max_offset_y is not None),
-                          float(max_offset_y or 0), stream)
+                          _CLAMP_CODE[mode], r or 0.0, stream)
     if err != 0:
         raise RuntimeError(f"dcn_fwd launch failed: cudaError {err}")
-    launches["exact" if max_offset_y is None else "rowband"] += 1
+    launches[mode] += 1
     return out
 
 
 def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
-                           max_offset_y: int | None = None):
+                           max_offset_y: int | None = None,
+                           max_offset: int | None = None):
     """DCNv2 backward: (dx, doffsets, dmasks, dweights, dbias) for the
     cotangent g (B, H, W, Cout) of `deform_conv2d`; offsets are the raw
     (unclamped) ones.
 
     On CUDA: gk = W_k @ g for every tap (one f32 matmul,
-    dcn_rowband.py:309), then csrc/dcn_bwd.cu recomputes each tap's four
-    bilinear corners and emits the samples, d offsets, d masks and dx by
-    f32 atomics; dW and db are matmul / sum over those (:353-355), and
-    the clamp pass-through scales the y-offset gradients (:458-465)."""
+    dcn_rowband.py:309, dcn_halo.py:385), then csrc/dcn_bwd.cu recomputes
+    each tap's four bilinear corners at the clamped offsets and emits the
+    samples, d offsets, d masks and dx by f32 atomics; dW and db are
+    matmul / sum over those (dcn_rowband.py:353-355, dcn_halo.py:388-389),
+    and the clamp's pass-through scales the offset gradients: the y
+    components by `clamp_y_keep` (rowband, :458-465), every component by
+    `halo_keep` (halo, dcn_halo.py:442-450)."""
+    mode, r = clamp_mode(max_offset_y, max_offset)
     if x.device.type == "cpu":
         return deform_conv2d_backward_ref(x, offsets, masks, weights, bias,
-                                          g, max_offset_y)
+                                          g, max_offset_y, max_offset)
     if x.device.type != "cuda":
         raise ValueError(f"dcn_bwd: no kernel for device {x.device}")
     _check(x, offsets, masks, weights, bias, g)
@@ -294,15 +363,15 @@ def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
         err = lib.dcn_bwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
                           gk.data_ptr(), samp.data_ptr(), doff.data_ptr(),
                           dmask.data_ptr(), dx.data_ptr(), b, h, w, cin,
-                          _DTYPE_CODE[x.dtype],
-                          int(max_offset_y is not None),
-                          float(max_offset_y or 0), stream)
+                          _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode], r or 0.0,
+                          stream)
     if err != 0:
         raise RuntimeError(f"dcn_bwd launch failed: cudaError {err}")
-    launches["bwd_exact" if max_offset_y is None else "bwd_rowband"] += 1
-    if max_offset_y is not None:
-        doff[..., 0::2] *= clamp_y_keep(offsets[..., 0::2],
-                                        float(max_offset_y))
+    launches[f"bwd_{mode}"] += 1
+    if mode == "rowband":
+        doff[..., 0::2] *= clamp_y_keep(offsets[..., 0::2], r)
+    elif mode == "halo":
+        doff *= halo_keep(offsets, r)
     del gk      # stream-ordered: its memory is reused after the kernel
     # modulated samples in place: dW = (m S)^T g
     samp.view(npix, 9, cin).mul_(masks.reshape(npix, 9, 1))
@@ -314,23 +383,27 @@ def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
 
 class _DeformConv2d(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient.  Saves
-    the raw offsets: the kernels own the y-clamp and its tie rule."""
+    the raw offsets and the clamp keywords: the kernels own the clamp and
+    its tie rule."""
 
     @staticmethod
-    def forward(ctx, x, offsets, masks, weights, bias, max_offset_y):
+    def forward(ctx, x, offsets, masks, weights, bias, max_offset_y,
+                max_offset):
         ctx.save_for_backward(x, offsets, masks, weights, bias)
-        ctx.max_offset_y = max_offset_y
-        return _forward(x, offsets, masks, weights, bias, max_offset_y)
+        ctx.clamp = (max_offset_y, max_offset)
+        return _forward(x, offsets, masks, weights, bias, max_offset_y,
+                        max_offset)
 
     @staticmethod
     def backward(ctx, g):
         grads = deform_conv2d_backward(*ctx.saved_tensors, g.contiguous(),
-                                       ctx.max_offset_y)
-        return (*grads, None)
+                                       *ctx.clamp)
+        return (*grads, None, None)
 
 
 def deform_conv2d(x, offsets, masks, weights, bias=None,
-                  max_offset_y: int | None = None) -> torch.Tensor:
+                  max_offset_y: int | None = None,
+                  max_offset: int | None = None) -> torch.Tensor:
     """DCNv2 forward (see the module docstring for the contract); when
     grad is enabled the result carries the backward of
     `deform_conv2d_backward`."""
@@ -339,5 +412,6 @@ def deform_conv2d(x, offsets, masks, weights, bias=None,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, offsets, masks, weights, bias)):
         return _DeformConv2d.apply(x, offsets, masks, weights, bias,
-                                   max_offset_y)
-    return _forward(x, offsets, masks, weights, bias, max_offset_y)
+                                   max_offset_y, max_offset)
+    return _forward(x, offsets, masks, weights, bias, max_offset_y,
+                    max_offset)

@@ -6,36 +6,47 @@ kernels against their plain PyTorch versions.
 
 The main paths are DLA-34 polydet inference on 2048x1024 Cityscapes frames
 at full width (8 classes, 16 vertices, head_conv 256, 512x1024 network
-input), seeded random weights, through `create_detector(...).run` and
-`run_batch`; and polydet training at the same width through
-`centerpoly_tpu_torch.main` on a synthetic 2048x1024 fixture (batch 4,
-f32, the paper's v2 loss).  Phases (any failure exits non-zero, with no
+input), seeded random weights, through `create_detector(...).run`,
+`run_batch` and `run_stream`; and polydet training at the same width
+through `centerpoly_tpu_torch.main` on a synthetic 2048x1024 fixture
+(batch 4, f32, the paper's v2 loss); each in the DCN modes `off` (exact),
+`rowband:R` and `halo:4`.  Phases (any failure exits non-zero, with no
 result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build csrc/dcn_fwd.cu with nvcc (sm_90a) and print ptxas's report;
-  3. the kernel against `deform_conv2d_ref` at the 7 DCN node shapes of
-     the path, exact and rowband:6, f32 (TF32 off; relative max 1e-4: the
-     same f32 arithmetic summed in another order) and bf16 (relative max
-     2e-2: the plain version rounds the bilinear fractions and corner
-     products to bf16, deform_conv.py:122, the kernel keeps them in f32);
+  2. build csrc/dcn_fwd.cu and csrc/dcn_bwd.cu with nvcc (sm_90a), one
+     process each, and print ptxas's report;
+  3. the forward kernel against `deform_conv2d_ref` at the 7 DCN node
+     shapes of the path, exact, rowband:6 and halo:4, f32 (TF32 off;
+     relative max 1e-4: the same f32 arithmetic summed in another order)
+     and bf16 (relative max 2e-2: the plain version rounds the bilinear
+     fractions and corner products to bf16, deform_conv.py:122, the kernel
+     keeps them in f32);
   4. the slice: bf16 detector (the inference default rowband:6, then the
      exact `off` mode) on seeded frames, each path run with the launch
      counts zeroed just before and read just after (16 a forward); f32 on
      the card (TF32 off) against the port on the CPU, per head;
-  5. times with CUDA events at each node shape (kernel, plain version,
-     bound) and end to end per frame;
-  6. device time by kernel and the device's busy share (torch.profiler);
-  7. csrc/dcn_bwd.cu against the plain backward at the 7 node shapes,
-     batch 2, exact and rowband:4, f32 and bf16, plus y-offsets at +-R and
-     all-zero offsets (tolerances in `phase_bwd_vs_plain`);
-  8. the training slice: `main` for one epoch of 2 steps in `off` and
-     rowband:4 (16 forward + 16 backward launches a step), the loss
-     falling on one fixed batch, a checkpoint round trip, and one f32
+  5. the slice in halo:4: `run` and `run_batch` (16 halo launches a
+     forward, none of another mode), `run_stream` equal to `run` frame by
+     frame, f32 heads on the card against the CPU, and
+     `tools/analyze_dcn_offsets` on the same weights and frame, whose
+     clamp must bite (`phase_halo_slice`);
+  6. times with CUDA events at each node shape (kernel, plain version,
+     bound) in the three modes, and end to end per frame (`run`,
+     `run_batch`, `run_stream`);
+  7. device time by kernel and the device's busy share (torch.profiler),
+     and the busy share of `run` and `run_stream` in halo:4;
+  8. csrc/dcn_bwd.cu against the plain backward at the 7 node shapes,
+     batch 2, exact, rowband:4 and halo:4, f32 and bf16, plus offsets at
+     +-R on each axis, beyond R and all zero (tolerances and tie rules in
+     `phase_bwd_vs_plain`);
+  9. the training slice: `main` for one epoch of 2 steps in `off`,
+     rowband:4 and halo:4 (16 forward + 16 backward launches a step), the
+     loss falling on one fixed batch, a checkpoint round trip, and one f32
      step on the card against the port on the CPU (`phase_train_vs_cpu`);
-  9. the backward's times per node and per step (wrapper, plain, bound),
+ 10. the backward's times per node and per step (wrapper, plain, bound),
      train step p50 and images/s, the loader's host time, one profiled
-     step; the worked-out bounds of the unported halo kernels.
+     step in `off` and in halo:4.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -67,14 +78,25 @@ SOURCES = {"dcn_fwd": "centerpoly_tpu_torch/csrc/dcn_fwd.cu",
            "dcn_bwd": "centerpoly_tpu_torch/csrc/dcn_bwd.cu"}
 REPLACES = {"dcn_fwd[exact]": "centerpoly_tpu/kernels/dcn_pallas.py:44",
             "dcn_fwd[rowband]": "centerpoly_tpu/kernels/dcn_rowband.py:132",
+            "dcn_fwd[halo]": "centerpoly_tpu/kernels/dcn_halo.py:124",
             # the exact mode's backward is XLA autodiff in the JAX package
             "dcn_bwd[exact]": "centerpoly_tpu/models/deform_conv.py:744",
-            "dcn_bwd[rowband]": "centerpoly_tpu/kernels/dcn_rowband.py:190"}
+            "dcn_bwd[rowband]": "centerpoly_tpu/kernels/dcn_rowband.py:190",
+            "dcn_bwd[halo]": "centerpoly_tpu/kernels/dcn_halo.py:173,231"}
 # the training slice: rowband R, batch, and the flags of the paper's v2
 # run (polar polygons, L1 + IoU polygon loss, vertex order loss)
 TRAIN_R = 4
 TRAIN_BATCH = 4
-TRAIN_MODES = {"exact": "off", "rowband": f"rowband:{TRAIN_R}"}
+# halo R of both slices: kernels/dcn_halo.py DEFAULT_MAX_OFFSET
+HALO_R = 4
+TRAIN_MODES = {"exact": "off", "rowband": f"rowband:{TRAIN_R}",
+               "halo": f"halo:{HALO_R}"}
+# the kernels' clamp keywords by mode: the forward as inference runs it,
+# the backward as training does
+FWD_CLAMPS = {"exact": {}, "rowband": {"max_offset_y": 6},
+              "halo": {"max_offset": HALO_R}}
+BWD_CLAMPS = {"exact": {}, "rowband": {"max_offset_y": TRAIN_R},
+              "halo": {"max_offset": HALO_R}}
 TRAIN_FLAGS = ["--rep", "polar", "--poly_loss", "l1+iou", "--poly_order",
                "--lr", "2e-4"]
 BWD_NAMES = ("dx", "doffsets", "dmasks", "dweights", "dbias")
@@ -187,13 +209,13 @@ def phase_kernel_vs_plain():
     import torch
     from centerpoly_tpu_torch.kernels import dcn
     torch.backends.cuda.matmul.allow_tf32 = False
-    errs = {"exact": 0.0, "rowband": 0.0}
+    errs = dict.fromkeys(FWD_CLAMPS, 0.0)
     for i, shape in enumerate(NODE_SHAPES):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             args = node_inputs(shape, dtype, SEED + i)
-            for mode, r in (("exact", None), ("rowband", 6)):
-                got = dcn.deform_conv2d(*args, max_offset_y=r)
-                ref = dcn.deform_conv2d_ref(*args, max_offset_y=r)
+            for mode, kw in FWD_CLAMPS.items():
+                got = dcn.deform_conv2d(*args, **kw)
+                ref = dcn.deform_conv2d_ref(*args, **kw)
                 torch.cuda.synchronize()
                 diff = (got.float() - ref.float()).abs().max().item()
                 rel = diff / ref.float().abs().max().item()
@@ -298,31 +320,125 @@ def phase_slice():
         h.remove()
     print(f"[slice] max |y-offset| per DCN node (f32 card): "
           + " ".join(f"{o:.1f}" for o in offs))
+    check_heads("slice", ref, got32, got16)
+    return det, sd, frames, {"rowband": launches_rowband,
+                             "exact": launches_exact}
+
+
+def check_heads(tag, ref, got32, got16):
+    """f32 heads on the card within 2e-3 relative max of the CPU port's;
+    bf16 heads finite."""
+    import torch
     for k in ref:
         scale = ref[k].abs().max().item()
         r32 = (got32[k].float().cpu() - ref[k]).abs().max().item() / scale
         r16 = (got16[k].float().cpu() - ref[k]).abs().max().item() / scale
-        print(f"[slice] head {k}: f32 card vs CPU rel_max {r32:.3e}; "
+        print(f"[{tag}] head {k}: f32 card vs CPU rel_max {r32:.3e}; "
               f"bf16 card vs CPU rel_max {r16:.3e}")
-        check(r32 < 2e-3, f"f32 head {k} disagrees with the CPU port")
-        check(bool(torch.isfinite(got16[k]).all()), f"bf16 head {k} not finite")
-    return det, frames, {"rowband": launches_rowband, "exact": launches_exact}
+        check(r32 < 2e-3, f"f32 head {k} disagrees with the CPU port ({tag})")
+        check(bool(torch.isfinite(got16[k]).all()),
+              f"bf16 head {k} not finite ({tag})")
 
 
-def phase_times(det, frames):
+def phase_halo_slice(sd, frames, root):
+    """The inference slice in halo:4, bf16: `run` on each seeded frame and
+    `run_batch` of 4, each with the launch counts zeroed just before and
+    read just after (16 halo launches a forward, none of another mode);
+    `run_stream` over the 4 frames (depth 2), whose results must equal
+    `run`'s frame by frame (cuDNN held to its deterministic algorithms for
+    both, so the two are bitwise comparable); f32 heads on the card
+    against the port on the CPU; and `tools/analyze_dcn_offsets` through
+    its entry point on the same weights (as a .pth) and frame, which must
+    find offsets beyond R on some node."""
+    import torch
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.tools import analyze_dcn_offsets
+
+    cfg = Config(dcn_kernel=f"halo:{HALO_R}")
+    check(not cfg.prefer_fast_inference_dcn()
+          and cfg.dcn_kernel == f"halo:{HALO_R}", "halo:4 was overridden")
+    det = create_detector(cfg, sd)
+    check(det.device.type == "cuda" and det.dtype == torch.bfloat16,
+          f"detector on {det.device} in {det.dtype}")
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for i, frame in enumerate(frames):
+        ret, n = run_counted(lambda: det.run(frame), "halo")
+        runs.append(ret["results"])
+        rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
+        check(rows.shape == (cfg.K, 4 + 1 + 2 * cfg.nbr_points + 1)
+              and np.isfinite(rows).all(), f"halo frame {i} results")
+    print(f"[halo] run: {n} halo kernel launches a frame, none of another "
+          f"mode; results finite, {cfg.K} rows")
+    batch, n = run_counted(lambda: det.run_batch(frames), "halo")
+    check(len(batch) == len(frames), "run_batch returned the wrong count")
+    print(f"[halo] run_batch of {len(frames)}: {n} launches (one batched "
+          f"forward)")
+    zero_counts()
+    streamed = list(det.run_stream(iter(frames), depth=2))
+    counts = dict(dcn.launches)
+    torch.backends.cudnn.deterministic = flags
+    check(counts["halo"] == 16 * len(frames)
+          and sum(counts.values()) == counts["halo"],
+          f"run_stream launches {counts}")
+    check(len(streamed) == len(frames), "run_stream dropped frames")
+    for i, (got, ref) in enumerate(zip(streamed, runs)):
+        check(set(got) == set(ref) and all(
+            np.array_equal(np.asarray(got[j]), np.asarray(ref[j]))
+            for j in ref), f"run_stream frame {i} differs from run()")
+    print(f"[halo] run_stream (depth 2) over {len(frames)} frames: "
+          f"{counts['halo']} launches, each frame's results equal run()'s")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = Config(mixed_precision=False, dcn_kernel=f"halo:{HALO_R}")
+    det32 = create_detector(cfg32, sd)
+    det_cpu = create_detector(cfg32, sd, device="cpu")
+    trans, meta = det._scaled_trans(*FRAME_HW, 1.0)
+    with torch.no_grad():
+        x_cpu = det_cpu._pre_device(torch.from_numpy(frames[0])[None], trans,
+                                    (meta["inp_h"], meta["inp_w"]))
+        ref = det_cpu._heads(x_cpu)
+        got32 = det32._heads(x_cpu.to("cuda",
+                                      memory_format=torch.channels_last))
+        got16 = det._heads(x_cpu.to("cuda", torch.bfloat16,
+                                    memory_format=torch.channels_last))
+    check_heads("halo", ref, got32, got16)
+    del det32, det_cpu
+
+    weights = os.path.join(root, "halo_weights.pth")
+    torch.save({"state_dict": sd}, weights)
+    np.save(os.path.join(root, "frame0.npy"), frames[0])
+    rows = analyze_dcn_offsets.main([
+        "polydet", "--load_model", weights, "--demo",
+        os.path.join(root, "frame0.npy"), "--r", str(HALO_R),
+        "--dcn_kernel", f"halo:{HALO_R}"])
+    worst = max(rows, key=lambda row: row["xy_frac_clamped_at_r"])
+    check(len(rows) == 16 and worst["xy_frac_clamped_at_r"] > 0,
+          "analyze_dcn_offsets found no offset beyond R")
+    print(f"[halo] analyze_dcn_offsets: {len(rows)} nodes, worst "
+          f"{worst['node']} xy_frac_clamped_at_r "
+          f"{worst['xy_frac_clamped_at_r']} (y_max {worst['y_max']}, x_max "
+          f"{worst['x_max']})")
+    return det, counts["halo"] // len(frames)
+
+
+def phase_times(det, det_halo, frames):
     import torch
     from centerpoly_tpu_torch.kernels import dcn
-    per_frame = {m: {"ms": 0.0, "plain_ms": 0.0} for m in ("exact", "rowband")}
+    per_frame = {m: {"ms": 0.0, "plain_ms": 0.0} for m in FWD_CLAMPS}
     bound_frame, ops_share = 0.0, 0.0
     for i, (shape, n) in enumerate(NODE_SHAPES.items()):
         args = node_inputs(shape, torch.bfloat16, SEED + i)
         bound, by = node_bound_ms(shape)
         bound_frame += n * bound
         ops_share += n * bound * (by == "operations")
-        for mode, r in (("exact", None), ("rowband", 6)):
-            ms = cuda_ms(lambda: dcn.deform_conv2d(*args, max_offset_y=r), 3, 20)
-            plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, max_offset_y=r),
-                            1, 5)
+        for mode, kw in FWD_CLAMPS.items():
+            ms = cuda_ms(lambda: dcn.deform_conv2d(*args, **kw), 3, 20)
+            plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 5)
             per_frame[mode]["ms"] += n * ms
             per_frame[mode]["plain_ms"] += n * plain
             print(f"[time] {shape} x{n} {mode:7s} kernel {ms:.4f} ms  plain "
@@ -333,50 +449,71 @@ def phase_times(det, frames):
         print(f"[time] {mode} per frame (16 nodes): kernel {v['ms']:.3f} ms  "
               f"plain {v['plain_ms']:.3f} ms  bound {bound_frame:.4f} ms")
 
-    tots = []
-    for i in range(12):
-        ret = det.run(frames[i % len(frames)])
-        if i >= 2:
-            tots.append(ret["tot"])
-    p50 = 1e3 * statistics.median(tots)
-    print(f"[e2e] run: p50 {p50:.2f} ms/frame, mean {1e3 * statistics.mean(tots):.2f}"
-          f" ms, {len(tots) / sum(tots):.2f} frames/s (10 frames, bf16, rowband:6)")
-    det.run_batch(frames)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        det.run_batch(frames)
-    dt = (time.perf_counter() - t0) / 3
-    print(f"[e2e] run_batch of 4: {1e3 * dt / 4:.2f} ms/frame, "
-          f"{4 / dt:.2f} frames/s")
+    for d, mode in ((det, "rowband:6"), (det_halo, f"halo:{HALO_R}")):
+        tots = []
+        for i in range(12):
+            ret = d.run(frames[i % len(frames)])
+            if i >= 2:
+                tots.append(ret["tot"])
+        p50 = 1e3 * statistics.median(tots)
+        print(f"[e2e] {mode} run: p50 {p50:.2f} ms/frame, mean "
+              f"{1e3 * statistics.mean(tots):.2f} ms, "
+              f"{len(tots) / sum(tots):.2f} frames/s (10 frames, bf16)")
+        d.run_batch(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            d.run_batch(frames)
+        dt = (time.perf_counter() - t0) / 3
+        print(f"[e2e] {mode} run_batch of 4: {1e3 * dt / 4:.2f} ms/frame, "
+              f"{4 / dt:.2f} frames/s")
+        stream = [frames[i % len(frames)] for i in range(12)]
+        for _ in d.run_stream(stream[:2]):
+            pass
+        t0 = time.perf_counter()
+        n = sum(1 for _ in d.run_stream(iter(stream), depth=2))
+        dt = time.perf_counter() - t0
+        print(f"[e2e] {mode} run_stream (depth 2): {1e3 * dt / n:.2f} "
+              f"ms/frame, {n / dt:.2f} frames/s ({n} frames)")
     by = "operations" if ops_share >= bound_frame / 2 else "bytes"
     return per_frame, bound_frame, by
 
 
-def phase_profile(det, frames):
-    """Device time by kernel over 3 `run` calls, and the device's busy
-    share of their wall time (one stream, so kernel times do not overlap)."""
+def phase_profile(det, det_halo, frames):
+    """Device time by kernel over 3 `run` calls (rowband:6), and the
+    device's busy share of their wall time (one stream, so kernel times do
+    not overlap); then the busy share of `run` and of `run_stream` (depth
+    2) over the same 3 frames in halo:4."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for frame in frames[:3]:
-            det.run(frame)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in rows)
-    if not rows:
-        print("[profile] no device time in the trace: busy share not measured")
-        return
-    dcn_ms = sum(r[0] for r in rows if "dcn_fwd" in r[2])
-    print(f"[profile] 3 frames: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / wall_ms:.1f} %), DCN kernel {dcn_ms:.2f} ms "
-          f"({100 * dcn_ms / busy:.1f} % of device time)")
-    for ms, n, key in rows[:12]:
-        print(f"[profile] {ms / 3:8.3f} ms/frame  {n // 3:4d} calls/frame  {key[:90]}")
+    paths = [("run", det, lambda d: [d.run(f) for f in frames[:3]]),
+             ("halo:4 run", det_halo, lambda d: [d.run(f) for f in frames[:3]]),
+             ("halo:4 run_stream", det_halo,
+              lambda d: list(d.run_stream(iter(frames[:3]), depth=2)))]
+    for label, d, fn in paths:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(d)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if not rows:
+            print("[profile] no device time in the trace: busy share not "
+                  "measured")
+            return
+        busy = sum(r[0] for r in rows)
+        dcn_ms = sum(r[0] for r in rows if "dcn_fwd" in r[2])
+        print(f"[profile] {label}, 3 frames: wall {wall_ms:.2f} ms, device "
+              f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f} %), DCN kernel "
+              f"{dcn_ms:.2f} ms ({100 * dcn_ms / busy:.1f} % of device time)")
+        if label == "run":
+            for ms, n, key in rows[:12]:
+                print(f"[profile] {ms / 3:8.3f} ms/frame  {n // 3:4d} "
+                      f"calls/frame  {key[:90]}")
 
 
 def rel_max(got, ref) -> float:
@@ -395,13 +532,14 @@ def bwd_inputs(shape, dtype, seed, batch):
     return args, g.to("cuda", dtype)
 
 
-def check_bwd(label, args, g, r, tol, tol_off):
+def check_bwd(label, args, g, kw, tol, tol_off):
     """The backward kernel (through its wrapper) against the plain
-    backward on the same inputs; returns the largest absolute error."""
+    backward on the same inputs, clamp keywords `kw`; returns the largest
+    absolute error and the kernel's gradients."""
     import torch
     from centerpoly_tpu_torch.kernels import dcn
-    got = dcn.deform_conv2d_backward(*args, g, r)
-    ref = dcn.deform_conv2d_backward_ref(*args, g, r)
+    got = dcn.deform_conv2d_backward(*args, g, **kw)
+    ref = dcn.deform_conv2d_backward_ref(*args, g, **kw)
     torch.cuda.synchronize()
     rel = {n: rel_max(a, b) for n, a, b in zip(BWD_NAMES, got, ref)}
     worst = max((a.double() - b.double()).abs().max().item()
@@ -413,7 +551,7 @@ def check_bwd(label, args, g, r, tol, tol_off):
           and rel["doffsets"] < tol_off
           and max(v for n, v in rel.items() if n != "doffsets") < tol,
           f"backward kernel disagrees: {label}")
-    return worst
+    return worst, got
 
 
 def phase_bwd_vs_plain():
@@ -424,31 +562,44 @@ def phase_bwd_vs_plain():
     for the offsets (differences of neighbouring samples, so their error is
     that of the samples over the size of the difference); bf16 3e-2 (the
     plain version rounds the bilinear fractions and products to bf16 and
-    scatters dx in bf16, the kernel keeps f32)."""
+    scatters dx in bf16, the kernel keeps f32).  The tie rules: rowband
+    passes 0.5 of a y-offset gradient at exactly +-R; halo zeroes every
+    offset gradient at |o| >= R on both axes, which must come out exactly
+    0."""
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
-    errs = {"exact": 0.0, "rowband": 0.0}
+    errs = dict.fromkeys(BWD_CLAMPS, 0.0)
     for i, shape in enumerate(NODE_SHAPES):
         for dtype, tol, tol_off in ((torch.float32, 1e-4, 1e-3),
                                     (torch.bfloat16, 3e-2, 3e-2)):
             args, g = bwd_inputs(shape, dtype, SEED + i, 2)
-            for mode, r in (("exact", None), ("rowband", TRAIN_R)):
-                worst = check_bwd(f"{shape} {mode:7s} {str(dtype)[6:]:8s}",
-                                  args, g, r, tol, tol_off)
+            for mode, kw in BWD_CLAMPS.items():
+                worst, _ = check_bwd(
+                    f"{shape} {mode:7s} {str(dtype)[6:]:8s}", args, g, kw,
+                    tol, tol_off)
                 if dtype == torch.float32:
                     errs[mode] = max(errs[mode], worst)
-    # the tie rules: y-offsets exactly at +-R (gradient 0.5 there) and all
+    # the tie rules: offsets exactly at +-R (y, then x), beyond R, and all
     # offsets 0 (the offset convs' init: every sample on an integer
     # position, where the floor cell's derivative is taken)
     shape = (64, 128, 128, 64)
     (x, off, mask, wt, bias), g = bwd_inputs(shape, torch.float32, SEED, 2)
-    at_r = off.clone()
-    at_r[..., 0::2] = torch.where(off[..., 0::2] > 0, float(TRAIN_R),
-                                  -float(TRAIN_R))
-    for case, o in (("y at +-R", at_r), ("zero offsets", torch.zeros_like(off))):
-        for mode, r in (("exact", None), ("rowband", TRAIN_R)):
-            check_bwd(f"{shape} {mode:7s} {case}", (x, o, mask, wt, bias), g,
-                      r, 1e-4, 1e-3)
+    cases = {"zero offsets": torch.zeros_like(off), "beyond R": off * 3}
+    for axis, name in ((0, "y"), (1, "x")):
+        o = off.clone()
+        o[..., axis::2] = torch.where(off[..., axis::2] > 0, float(TRAIN_R),
+                                      -float(TRAIN_R))
+        cases[f"{name} at +-R"] = o
+    for case, o in cases.items():
+        for mode, kw in BWD_CLAMPS.items():
+            _, got = check_bwd(f"{shape} {mode:7s} {case}",
+                               (x, o, mask, wt, bias), g, kw, 1e-4, 1e-3)
+            if mode == "halo":
+                saturated = o.abs() >= HALO_R
+                check(bool((got[1][saturated] == 0).all()),
+                      f"halo offset gradient not 0 where saturated ({case})")
+                print(f"[bwd] halo {case}: {int(saturated.sum())} saturated "
+                      f"offset gradients, all exactly 0")
     return errs
 
 
@@ -709,33 +860,6 @@ def phase_loader_workers(root, n_batches=8, workers=4):
           f"{os.cpu_count()} host cores)")
 
 
-def print_halo_bounds():
-    """Worked-out bounds of the TPU kernels not ported yet
-    (kernels/dcn_halo.py, the opt-in `halo:R` mode), at the 16 DLA-34
-    nodes, for a PERF.md row each; nothing runs.  #4 `_fwd_kernel` computes
-    the DCNv2 forward (both axes clamped), so its bound is the forward's:
-    bf16, batch 1, per frame, as `node_bound_ms`.  The backward kernels at
-    the training shape (f32, batch TRAIN_BATCH, per step):
-      #5 `_samp_kernel`, three sweeps (value, d/dy, d/dx hat): each reads x
-         and the offsets once and writes (B, H, W, 9, C) samples; ~8
-         operations per (pixel, tap, channel) a sweep (four corners);
-      #6 `_dx_kernel`: reads gkm (B, H, W, 9, C) and the offsets, writes dx;
-         ~8 operations per (pixel, tap, channel) (four weighted adds)."""
-    fwd = sum(n * node_bound_ms(s)[0] for s, n in NODE_SHAPES.items())
-    samp = dxk = 0.0
-    for (h, w, cin, _), n in NODE_SHAPES.items():
-        npix = TRAIN_BATCH * h * w
-        samp += n * 3 * 1e3 * max(
-            4.0 * (npix * cin + npix * 18 + npix * 9 * cin) / PEAK_BYTES,
-            8.0 * npix * 9 * cin / PEAK_F32_FLOPS)
-        dxk += n * 1e3 * max(
-            4.0 * (npix * 9 * cin + npix * 18 + npix * cin) / PEAK_BYTES,
-            8.0 * npix * 9 * cin / PEAK_F32_FLOPS)
-    print(f"[bound] halo #4 _fwd_kernel {fwd:.4f} ms a frame (bf16, batch 1); "
-          f"#5 _samp_kernel x3 {samp:.4f} ms and #6 _dx_kernel {dxk:.4f} ms "
-          f"a step (f32, batch {TRAIN_BATCH}, both by bytes)")
-
-
 def phase_train_times(trainers):
     """dcn_bwd per node and per step (f32, batch 4: the training default)
     beside its bound and the plain backward; train step p50 and images/s;
@@ -749,17 +873,18 @@ def phase_train_times(trainers):
     # cuDNN convolutions in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    per_step = {m: {"ms": 0.0, "plain_ms": 0.0} for m in TRAIN_MODES}
+    per_step = {m: {"ms": 0.0, "plain_ms": 0.0} for m in BWD_CLAMPS}
     bound_step, ops_share = 0.0, 0.0
     for i, (shape, n) in enumerate(NODE_SHAPES.items()):
         args, g = bwd_inputs(shape, torch.float32, SEED + i, TRAIN_BATCH)
         bound, by = bwd_bound_ms(shape, TRAIN_BATCH)
         bound_step += n * bound
         ops_share += n * bound * (by == "operations")
-        for mode, r in (("exact", None), ("rowband", TRAIN_R)):
-            ms = cuda_ms(lambda: dcn.deform_conv2d_backward(*args, g, r), 2, 10)
-            plain = cuda_ms(lambda: dcn.deform_conv2d_backward_ref(*args, g, r),
-                            1, 3)
+        for mode, kw in BWD_CLAMPS.items():
+            ms = cuda_ms(lambda: dcn.deform_conv2d_backward(*args, g, **kw),
+                         2, 10)
+            plain = cuda_ms(
+                lambda: dcn.deform_conv2d_backward_ref(*args, g, **kw), 1, 3)
             per_step[mode]["ms"] += n * ms
             per_step[mode]["plain_ms"] += n * plain
             print(f"[time-bwd] {shape} x{n} b{TRAIN_BATCH} {mode:7s} wrapper "
@@ -799,31 +924,33 @@ def phase_train_times(trainers):
           f"(2048x1024 .npy frames, one process): mean "
           f"{1e3 * statistics.mean(host):.1f} ms over 3 batches")
 
-    tr = trainers["exact"]
-    batch = tr.put(next(iter(tr.train_loader)))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.state, _ = tr.train_step(tr.state, batch)
+    for mode in ("exact", "halo"):
+        tr = trainers[mode]
+        batch = tr.put(next(iter(tr.train_loader)))
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
-    if not rows:
-        print("[train-profile] no device time in the trace: busy share not "
-              "measured")
-    else:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.state, _ = tr.train_step(tr.state, batch)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if not rows:
+            print("[train-profile] no device time in the trace: busy share "
+                  "not measured")
+            continue
         busy = sum(r[0] for r in rows)
         fwd = sum(r[0] for r in rows if "dcn_fwd" in r[2])
         bwd = sum(r[0] for r in rows if "dcn_bwd" in r[2])
-        print(f"[train-profile] one off step: wall {wall_ms:.2f} ms, device "
-              f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f} %), dcn_fwd "
-              f"{fwd:.2f} ms, dcn_bwd kernel {bwd:.2f} ms "
+        print(f"[train-profile] one {tr.cfg.dcn_kernel} step: wall "
+              f"{wall_ms:.2f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / wall_ms:.1f} %), dcn_fwd {fwd:.2f} ms, "
+              f"dcn_bwd kernel {bwd:.2f} ms "
               f"({100 * (fwd + bwd) / busy:.1f} % of device time)")
-        for ms, n, key in rows[:15]:
+        for ms, n, key in rows[:15 if mode == "exact" else 6]:
             print(f"[train-profile] {ms:8.3f} ms {n:4d} calls  {key[:90]}")
     by = "operations" if ops_share >= bound_step / 2 else "bytes"
     return per_step, bound_step, by
@@ -843,19 +970,19 @@ def main() -> int:
     name, count = phase_card()
     phase_build()
     errs = phase_kernel_vs_plain()
-    det, frames, launches = phase_slice()
-    per_frame, bound_frame, by = phase_times(det, frames)
-    phase_profile(det, frames)
-    del det
-    bwd_errs = phase_bwd_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        det, sd, frames, launches = phase_slice()
+        det_halo, launches["halo"] = phase_halo_slice(sd, frames, root)
+        per_frame, bound_frame, by = phase_times(det, det_halo, frames)
+        phase_profile(det, det_halo, frames)
+        del det, det_halo
+        bwd_errs = phase_bwd_vs_plain()
         write_rect_fixture(root, 2 * TRAIN_BATCH, SEED, *FRAME_HW,
                            splits=("train", "val"))
         trainers, bwd_launches = phase_train(root)
         phase_train_vs_cpu(root)
         per_step, bound_step, bwd_by = phase_train_times(trainers)
         phase_loader_workers(root)
-    print_halo_bounds()
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],
@@ -863,7 +990,7 @@ def main() -> int:
                 "ms": per_frame[mode]["ms"],
                 "plain_ms": per_frame[mode]["plain_ms"],
                 "bound_ms": bound_frame, "bound_by": by, "library_ms": None}
-               for mode in ("exact", "rowband")]
+               for mode in FWD_CLAMPS]
     kernels += [{"name": f"dcn_bwd[{mode}]", "route": "cuda",
                  "source": SOURCES["dcn_bwd"],
                  "replaces": REPLACES[f"dcn_bwd[{mode}]"],
@@ -872,7 +999,7 @@ def main() -> int:
                  "plain_ms": per_step[mode]["plain_ms"],
                  "bound_ms": bound_step, "bound_by": bwd_by,
                  "library_ms": None}
-                for mode in ("exact", "rowband")]
+                for mode in BWD_CLAMPS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -6,9 +6,11 @@ a CPU tensor) is held against:
     reference of the exact Pallas kernel (kernels/dcn_pallas.py; its
     interpret mode takes ~10 minutes, tests/test_dcn_pallas.py:4);
   * rowband:R: the row-band Pallas kernel itself in interpret mode, and
-    its oracle deform_conv2d_rowband_ref.
+    its oracle deform_conv2d_rowband_ref;
+  * halo:R: the halo Pallas kernel itself in interpret mode, and its
+    oracle deform_conv2d_halo_ref.
 Tolerance rtol 1e-4, atol 1e-5 in f32: that of tests/test_dcn_rowband.py
-(same arithmetic, sums taken in another order).
+and tests/test_dcn_halo.py (same arithmetic, sums taken in another order).
 """
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from centerpoly_tpu.kernels.dcn_halo import (deform_conv2d_halo,
+                                             deform_conv2d_halo_ref)
 from centerpoly_tpu.kernels.dcn_rowband import (deform_conv2d_rowband,
                                                 deform_conv2d_rowband_ref)
 from centerpoly_tpu.models import deform_conv as jdc
@@ -37,9 +41,9 @@ def _inputs(b=1, h=8, w=8, c=8, cout=8, seed=0, scale=1.5):
     return x, off, mask, wt, bias
 
 
-def _port(args, r=None):
+def _port(args, r=None, halo=None):
     return dcn.deform_conv2d_ref(*map(torch.from_numpy, args),
-                                 max_offset_y=r).numpy()
+                                 max_offset_y=r, max_offset=halo).numpy()
 
 
 def _edge_offsets(off, axis, sign):
@@ -96,14 +100,70 @@ def test_rowband_keeps_x_offsets_beyond_r_exact():
     np.testing.assert_allclose(_port(args, 2), np.asarray(ref), **TOL)
 
 
+def test_halo_matches_pallas_interpret():
+    """(1, 8, 8, 8), R = 2, offsets x1.5: some beyond R on both axes."""
+    args = _inputs(scale=1.5)
+    assert (np.abs(args[1][..., 0::2]) > 2).any()
+    assert (np.abs(args[1][..., 1::2]) > 2).any()
+    jargs = list(map(jnp.asarray, args))
+    kernel = deform_conv2d_halo(*jargs, 2, True)
+    oracle = deform_conv2d_halo_ref(*jargs, 2)
+    got = _port(args, halo=2)
+    np.testing.assert_allclose(got, np.asarray(kernel), **TOL)
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+def _at_bound(off, axis, r):
+    """Every offset of one axis exactly at +-r (by its sign), the other
+    axis random."""
+    off = off.copy()
+    off[..., axis::2] = np.where(off[..., axis::2] > 0, r, -r)
+    return off
+
+
+HALO_EDGE_CASES = {
+    "y_at_r": lambda o: _at_bound(o, 0, 2.0),
+    "x_at_r": lambda o: _at_bound(o, 1, 2.0),
+    "beyond_r": lambda o: o * 4,
+    **{f"off_{n}": (lambda ax, s: lambda o: _edge_offsets(o, ax, s))(ax, s)
+       for n, ax, s in (("bottom", 0, 1), ("top", 0, -1), ("right", 1, 1),
+                        ("left", 1, -1))},
+}
+
+
+@pytest.mark.parametrize("case", sorted(HALO_EDGE_CASES))
+def test_halo_edges_match_oracle(case):
+    """Offsets exactly at +-R on one axis, far beyond R, and samples pushed
+    off each image edge (clamped back to R inside it)."""
+    x, off, mask, wt, bias = _inputs(h=6, w=7, scale=1.5)
+    args = (x, HALO_EDGE_CASES[case](off), mask, wt, bias)
+    ref = deform_conv2d_halo_ref(*map(jnp.asarray, args), 2)
+    np.testing.assert_allclose(_port(args, halo=2), np.asarray(ref), **TOL)
+
+
+def test_halo_zero_is_the_modulated_plain_conv():
+    """halo:0 clamps every offset to 0: the output is the modulated 3x3
+    conv, whatever the offsets."""
+    x, off, mask, wt, bias = _inputs(h=6, w=7, scale=3.0)
+    ref = deform_conv2d_halo_ref(*map(jnp.asarray, (x, off, mask, wt, bias)),
+                                 0)
+    plain = jdc.deform_conv2d(*map(jnp.asarray, (x, np.zeros_like(off), mask,
+                                                 wt, bias)))
+    got = _port((x, off, mask, wt, bias), halo=0)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    np.testing.assert_allclose(got, np.asarray(plain), **TOL)
+
+
 def test_cpu_wrapper_is_the_plain_version():
     args = list(map(torch.from_numpy, _inputs(scale=3.0)))
     before = dict(dcn.launches)
-    for r in (None, 2):
-        torch.testing.assert_close(dcn.deform_conv2d(*args, max_offset_y=r),
-                                   dcn.deform_conv2d_ref(*args, max_offset_y=r),
+    for kw in ({}, {"max_offset_y": 2}, {"max_offset": 2}):
+        torch.testing.assert_close(dcn.deform_conv2d(*args, **kw),
+                                   dcn.deform_conv2d_ref(*args, **kw),
                                    rtol=0, atol=0)
     assert dcn.launches == before   # no kernel launched for CPU tensors
+    with pytest.raises(ValueError, match="not both"):
+        dcn.deform_conv2d(*args, max_offset_y=2, max_offset=2)
 
 
 def test_bf16_rounds_fractions_like_jax():
@@ -125,10 +185,13 @@ def test_bf16_rounds_fractions_like_jax():
                                rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("mode,env", [("off", "0"), ("rowband:2", "rowband:2")])
+@pytest.mark.parametrize("mode,env", [("off", "0"), ("rowband:2", "rowband:2"),
+                                      ("halo:2", "halo:2")])
 def test_dcnv2_layer_matches_flax(monkeypatch, mode, env):
     """The layer (offset conv, split, sigmoid, sampling, contraction) with
-    conv_offset_mask perturbed so offsets are non-zero and some exceed R."""
+    conv_offset_mask perturbed so offsets are non-zero and some exceed R.
+    In halo mode off the TPU the flax layer clips the offsets and runs the
+    XLA path (deform_conv.py:1012): the halo kernel's forward."""
     monkeypatch.setenv("CENTERPOLY_PALLAS_DCN", env)
     rng = np.random.RandomState(4)
     cin, cout = 6, 5
@@ -173,14 +236,25 @@ def test_layer_init_and_names():
 @pytest.mark.parametrize("mode,r", [("auto", None), ("off", None),
                                     ("on", None), ("0", None),
                                     ("rowband", 4), ("rowband:6", 6),
-                                    ("ROWBAND:2", 2)])
+                                    ("ROWBAND:2", 2), ("halo", 4),
+                                    ("halo:4", 4), ("HALO:6", 6),
+                                    ("halo:0", 0)])
 def test_parse_dcn_kernel(mode, r):
-    assert parse_dcn_kernel(mode) == r
+    """-> (clamp mode, R): the mode says which axes R bounds."""
+    kind = mode.lower().split(":")[0]
+    want = kind if kind in ("rowband", "halo") else "exact"
+    assert parse_dcn_kernel(mode) == (want, r)
 
 
 def test_parse_dcn_kernel_rejects():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_dcn_kernel("halo:4")
-    for bad in ("rowband:x", "fused", "on:3"):
+    for bad in ("rowband:x", "fused", "on:3", "halo:x", "halo:-1",
+                "halo:2.5"):
         with pytest.raises(ValueError):
             parse_dcn_kernel(bad)
+
+
+def test_dcnv2_clamp_keywords():
+    """The layer hands the kernel one clamp keyword by mode."""
+    assert DCNv2(4, 3, "off").clamp == {}
+    assert DCNv2(4, 3, "rowband:6").clamp == {"max_offset_y": 6}
+    assert DCNv2(4, 3, "halo").clamp == {"max_offset": 4}

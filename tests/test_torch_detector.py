@@ -17,6 +17,7 @@ from centerpoly_tpu.configs import Config as JaxConfig
 from centerpoly_tpu.infer import detector as jdet
 from centerpoly_tpu_torch.configs import Config
 from centerpoly_tpu_torch.infer import demo
+from centerpoly_tpu_torch.infer import detector as detector_module
 from centerpoly_tpu_torch.infer.detector import create_detector
 from centerpoly_tpu_torch.kernels import dcn
 
@@ -28,6 +29,15 @@ def variables():
     # offsets of up to ~15 px, some past the rowband:6 band; seed 8 leaves
     # no two of the top-K scores closer than 4e-4
     return jax_dla_variables(HEADS, 32, 64, 128, seed=8)[1]
+
+
+@pytest.fixture(scope="module")
+def halo_variables():
+    # offset convs at gain 0.3: offsets of up to ~20 px, half of them past
+    # +-4 at the coarse nodes.  At gain 1 most halo-clamped samples stay in
+    # the image, and the random network turns so sensitive that a batch of
+    # 2 (convolutions summed in another order) moves a vertex by 3e-2 px
+    return jax_dla_variables(HEADS, 32, 64, 128, seed=8, offset_gain=0.3)[1]
 
 
 @pytest.fixture
@@ -46,8 +56,12 @@ def _frame(seed=11):
                                                dtype=np.uint8)
 
 
-@pytest.mark.parametrize("mode", ["rowband:6", "off"])
-def test_run_matches_jax(jax_env, variables, mode):
+@pytest.mark.parametrize("mode", ["rowband:6", "off", "halo:4"])
+def test_run_matches_jax(jax_env, request, mode):
+    """In halo mode the JAX detector runs its clipped XLA fallback on the
+    CPU (deform_conv.py:1012), which has the halo kernel's forward."""
+    variables = request.getfixturevalue(
+        "halo_variables" if mode.startswith("halo") else "variables")
     frame = _frame()
     ref = jdet.create_detector(JaxConfig(dcn_kernel=mode, **KW),
                                variables).run(frame)
@@ -98,8 +112,36 @@ def test_config_dcn_kernel():
     assert Config().heads == {"hm": 8, "poly": 32, "pseudo_depth": 1, "reg": 2}
     with pytest.raises(ValueError):
         Config(dcn_kernel="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_detector(Config(dcn_kernel="halo:4", **KW), device="cpu")
+    # a user's halo:R is left alone, and reaches every DCN node
+    cfg = Config(dcn_kernel="halo:4", **KW)
+    assert not cfg.prefer_fast_inference_dcn() and cfg.dcn_kernel == "halo:4"
+    det = create_detector(cfg, device="cpu")
+    clamps = [m.clamp for m in det.model.modules() if hasattr(m, "clamp")]
+    assert clamps == [{"max_offset": 4}] * 16
+    with pytest.raises(ValueError, match="halo:x"):
+        create_detector(Config(dcn_kernel="halo:x", **KW), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def stream_case(halo_variables):
+    """halo:4, two scales (so each frame dispatches two forwards), four
+    frames and run()'s results for each."""
+    cfg = Config(dcn_kernel="halo:4", test_scales=(1.0, 0.5), **KW)
+    det = create_detector(cfg, halo_variables, device="cpu")
+    frames = [_frame(s) for s in (11, 12, 13, 14)]
+    return det, frames, [det.run(f)["results"] for f in frames]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_run_stream_matches_run(stream_case, depth):
+    """run_stream yields, frame by frame and in order, what run() gives."""
+    det, frames, refs = stream_case
+    streamed = list(det.run_stream(iter(frames), depth=depth))
+    assert len(streamed) == len(frames)
+    for got, ref in zip(streamed, refs):
+        assert set(got) == set(ref)
+        for j in ref:
+            np.testing.assert_array_equal(got[j], ref[j])
 
 
 def test_config_from_args():
@@ -126,3 +168,23 @@ def test_demo_on_a_folder(tmp_path, capsys):
                "--save_overlay"])
     out = capsys.readouterr().out
     assert "a.png: tot" in out and (tmp_path / "a_polydet.png").exists()
+
+
+def test_demo_halo(tmp_path, capsys, monkeypatch):
+    """`--dcn_kernel halo:4` reaches the demo's detector."""
+    cv2 = pytest.importorskip("cv2")
+    cv2.imwrite(str(tmp_path / "a.png"), _frame())
+    made = []
+
+    def spy(cfg, *args, **kw):
+        det = create_detector(cfg, *args, **kw)
+        made.append([m.clamp for m in det.model.modules()
+                     if hasattr(m, "clamp")])
+        return det
+
+    monkeypatch.setattr(detector_module, "create_detector", spy)
+    demo.main(["polydet", "--demo", str(tmp_path / "a.png"), "--device",
+               "cpu", "--input_h", "64", "--input_w", "128", "--head_conv",
+               "32", "--dcn_kernel", "halo:4"])
+    assert "a.png: tot" in capsys.readouterr().out
+    assert made == [[{"max_offset": 4}] * 16]

@@ -11,7 +11,8 @@ bf16, where the plain version rounds the bilinear fractions and corner
 products to bf16 (deform_conv.py:122) and the kernel keeps them in f32.
 The backward kernel: 1e-4 (dx, dW, dmask, db) and 1e-3 (d offsets,
 differences of neighbouring samples, so their relative error is that of
-the samples over the size of the difference) in f32; 3e-2 in bf16.
+the samples over the size of the difference) in f32; 3e-2 in bf16.  The
+same tolerances hold in every clamp mode (exact, rowband:R, halo:R).
 """
 import numpy as np
 import pytest
@@ -171,6 +172,90 @@ def test_detector_on_card(cuda, mode, key):
     assert dcn.launches[key] == before + 16
     rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
     assert rows.shape == (16, 38) and np.isfinite(rows).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 40, 70), (1, 9, 13, 3, 5)])
+@pytest.mark.parametrize("dtype,tol_fwd,tol,tol_off", [
+    (torch.float32, 1e-4, 1e-4, 1e-3), (torch.bfloat16, 2e-2, 3e-2, 3e-2)])
+def test_halo_kernels_match_plain(cuda, shape, dtype, tol_fwd, tol, tol_off):
+    """dcn_fwd and dcn_bwd in the xy clamp mode (halo:2; offsets of std 4
+    px, most beyond R) against their plain versions; each launch counts
+    once under its own key."""
+    args = _inputs(cuda, dtype, *shape)
+    g = torch.randn(*shape[:3], shape[4], generator=torch.Generator()
+                    .manual_seed(1)).to(cuda, dtype)
+    before = dict(dcn.launches)
+    got = dcn.deform_conv2d(*args, max_offset=2)
+    torch.cuda.synchronize()
+    assert _rel(got, dcn.deform_conv2d_ref(*args, max_offset=2)) < tol_fwd
+    grads = dcn.deform_conv2d_backward(*args, g, max_offset=2)
+    torch.cuda.synchronize()
+    after = dict(dcn.launches)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"halo": 1, "bwd_halo": 1}
+    rel = _bwd_rel(grads, dcn.deform_conv2d_backward_ref(*args, g,
+                                                         max_offset=2))
+    assert rel["doffsets"] < tol_off, rel
+    assert max(v for k, v in rel.items() if k != "doffsets") < tol, rel
+
+
+@pytest.mark.parametrize("case", ["zero", "y_at_r", "x_at_r", "beyond_r"])
+def test_halo_backward_tie_rule(cuda, case):
+    """Offsets all 0, exactly at +-R on one axis, or beyond R: the kernel
+    matches the plain backward, and every saturated offset gradient is
+    exactly 0."""
+    x, off, mask, wt, bias = _inputs(cuda, torch.float32, 2, 6, 9, 16, 8)
+    at_r = torch.where(off > 0, 2.0, -2.0)
+    off = {"zero": torch.zeros_like(off),
+           "y_at_r": torch.stack([at_r[..., 0::2], off[..., 1::2]], -1)
+           .reshape(off.shape),
+           "x_at_r": torch.stack([off[..., 0::2], at_r[..., 1::2]], -1)
+           .reshape(off.shape),
+           "beyond_r": off * 3}[case].contiguous()
+    g = torch.randn(2, 6, 9, 8, generator=torch.Generator()
+                    .manual_seed(2)).to(cuda)
+    got = dcn.deform_conv2d_backward(x, off, mask, wt, bias, g, max_offset=2)
+    ref = dcn.deform_conv2d_backward_ref(x, off, mask, wt, bias, g,
+                                         max_offset=2)
+    assert max(_bwd_rel(got, ref).values()) < 1e-3
+    saturated = off.abs() >= 2
+    assert bool((got[1][saturated] == 0).all())
+
+
+def test_dcnv2_halo_on_card_carries_autograd(cuda):
+    from centerpoly_tpu_torch.models.deform_conv import DCNv2
+    layer = DCNv2(16, 8, dcn_kernel="halo:2").to(cuda)
+    with torch.no_grad():
+        layer.conv_offset_mask.weight.normal_(0, 0.5)
+    x = torch.randn(2, 16, 6, 9, device=cuda, requires_grad=True)
+    before = dict(dcn.launches)
+    out = layer(x)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert dcn.launches["halo"] == before["halo"] + 1
+    assert dcn.launches["bwd_halo"] == before["bwd_halo"] + 1
+    for p in (layer.weight, layer.bias, layer.conv_offset_mask.weight,
+              layer.conv_offset_mask.bias, x):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all())
+    assert float(layer.conv_offset_mask.weight.grad.abs().max()) > 0
+
+
+def test_halo_model_forward_on_card(cuda):
+    """A halo:6 DLA-34 forward launches the halo kernel once a node."""
+    from centerpoly_tpu_torch.models import create_model
+    heads = {"hm": 8, "poly": 32, "pseudo_depth": 1, "reg": 2}
+    model = create_model("dla_34", heads, 32, dcn_kernel="halo:6").eval()
+    model.to(cuda, memory_format=torch.channels_last)
+    x = torch.randn(1, 3, 64, 128, device=cuda).to(
+        memory_format=torch.channels_last)
+    before = dict(dcn.launches)
+    with torch.no_grad():
+        out = model(x)[-1]
+    torch.cuda.synchronize()
+    after = dict(dcn.launches)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"halo": 16}
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
 
 
 def test_f32_model_on_card_matches_cpu(cuda):

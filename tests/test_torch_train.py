@@ -24,6 +24,7 @@ PyTorch differ by about that in f32.  So the test measures that floor
 each gradient, in relative L2, to 4x it (+1e-3), and the BatchNorm
 statistics as above.
 """
+import json
 import os
 
 import numpy as np
@@ -188,6 +189,24 @@ def test_train_step_matches_jax(fixture_batch, jax_step, offset_gain):
                                          offset_gain=offset_gain)
     if offset_gain == 0.0:
         variables = _zero_offset_convs(variables)
+    _check_train_step(model, variables, jax_step, fixture_batch)
+
+
+def test_train_step_matches_jax_halo(monkeypatch, fixture_batch):
+    """halo:2 at offset gain 1, so many offsets lie beyond R on both axes.
+    The JAX step runs the flax layers' clipped XLA path on the CPU
+    (deform_conv.py:1012); random offsets land on exactly +-R with
+    probability 0, where its tie rule and the port's differ.  The env
+    var is set through monkeypatch, and the JAX step is made afresh: the
+    mode is read when the step is traced."""
+    monkeypatch.setenv("CENTERPOLY_PALLAS_DCN", "halo:2")
+    model, variables = jax_dla_variables(HEADS, HEAD_CONV, H, W, seed=2)
+    _check_train_step(model, variables, jmake_train_step(JLossConfig(**LOSS)),
+                      fixture_batch, dcn_kernel="halo:2")
+
+
+def _check_train_step(model, variables, jax_step, fixture_batch,
+                      dcn_kernel="auto"):
     variables = jax.tree.map(np.asarray, variables)
 
     # the JAX package's own train step
@@ -206,7 +225,7 @@ def test_train_step_matches_jax(fixture_batch, jax_step, offset_gain):
         "params": jst.params, "batch_stats": jst.batch_stats}))
 
     # the port's
-    net = port_model(variables, HEADS, HEAD_CONV)
+    net = port_model(variables, HEADS, HEAD_CONV, dcn_kernel=dcn_kernel)
     batch = to_device(fixture_batch, "cpu")
     stat_floor, grad_floor, buf_floor = _self_sensitivity(net, batch)
     st = tstate.create_train_state(net, base_lr=LR)
@@ -293,3 +312,26 @@ def test_main_trains_and_resumes_on_a_fixture(tmp_path):
             if f == "log.txt"]
     text = "".join(open(p).read() for p in logs)
     assert "resumed from epoch 1" in text and "epoch 2 | 2 iters" in text
+
+
+def test_main_halo_on_a_fixture(tmp_path):
+    """`main --dcn_kernel halo:4` for one epoch of 2 steps: every DCN node
+    of the trained model clamps both axes, and the loss is finite."""
+    root = write_rect_fixture(str(tmp_path), 4, 1, 128, 256,
+                              splits=("train", "val"))
+    trainer = tmain.main([
+        "polydet", "--data_dir", root, "--save_dir", str(tmp_path / "exp"),
+        "--input_h", "64", "--input_w", "128", "--head_conv", "16",
+        "--batch_size", "2", "--num_workers", "0", "--val_intervals", "1",
+        "--rep", "polar", "--poly_loss", "l1+iou", "--poly_order",
+        "--dcn_kernel", "halo:4", "--device", "cpu", "--num_epochs", "1"])
+    assert trainer.state.step == 2 and trainer.cfg.dcn_kernel == "halo:4"
+    clamps = [m.clamp for m in trainer.state.model.modules()
+              if hasattr(m, "clamp")]
+    assert clamps == [{"max_offset": 4}] * 16
+    save_dir = tmp_path / "exp" / "cityscapes" / "polydet" / "default"
+    scalars = [json.loads(line) for d, _, fs in os.walk(save_dir)
+               for f in fs if f == "scalars.jsonl"
+               for line in open(os.path.join(d, f))]
+    losses = [s["value"] for s in scalars if s["tag"] == "train_loss"]
+    assert len(losses) == 1 and np.isfinite(losses[0])
