@@ -1,4 +1,4 @@
-// DCNv2 forward (modulated deformable 3x3 conv, stride 1, zero padding).
+// DCNv2 forward (modulated deformable 3x3 conv, stride 1, zero padding), v3.
 //
 // Replaces three TPU kernels of the JAX package:
 //   centerpoly_tpu/kernels/dcn_pallas.py::_kernel        (exact sampling)
@@ -6,63 +6,121 @@
 //     clamped to [-R, R], x exact; the `rowband:R` inference default)
 //   centerpoly_tpu/kernels/dcn_halo.py:124 _fwd_kernel   (both offset axes
 //     clamped to [-R, R]; the opt-in `halo:R` mode)
-// as one kernel templated on the clamp mode (none / y / xy).  It computes
-// what they compute, not how: the row-band kernel's one-hot column matmul,
-// its band tensor and its lane packing, and the halo kernel's sweep of
-// (2R+3)^2 rolled copies of a zero-padded flat map weighted by separable
-// hat functions, exist only because Mosaic could not compile a gather
-// (dcn_rowband.py:3-7, dcn_halo.py:5-8).  The hat sum over integer
-// displacements is zero-padded bilinear sampling, and Hopper gathers
-// natively, so every mode samples the four bilinear corners directly; the
-// halo mode adds one clamp of the x-offset.  (The halo kernel rounds the
-// masked samples to the activation type before its contraction; this one
-// contracts them in f32 in every mode.)
+// as one kernel with a clamp mode (none / y / xy).  It computes what they
+// compute, not how: the row-band kernel's one-hot column matmul and the
+// halo kernel's sweep of (2R+3)^2 rolled copies weighted by hat functions
+// exist only because Mosaic could not compile a gather (dcn_rowband.py:3-7,
+// dcn_halo.py:5-8).  Their sum over integer displacements is zero-padded
+// bilinear sampling, and Hopper gathers natively, so every mode samples the
+// four bilinear corners directly; the halo mode adds one clamp of x.  Like
+// the TPU kernels (dcn_pallas.py:85-87: `g.astype(cdt) * scale` into a
+// bf16 dot), the bf16 kernel rounds the modulated sample to bf16 before
+// the product; the f32 kernel keeps f32 accuracy (3xTF32, below).
 //
-// Design (simple first):
-//   * a block owns TP output pixels (flattened over B*H*W) and TC output
-//     channels;
-//   * it first computes, for its pixels and all 9 taps, the flat index of
-//     each of the 4 bilinear corners (-1 outside the image) and its weight
-//     bilinear * mask, in f32 from the f32 offsets;
-//   * then for each tap and each chunk of CK input channels it gathers the
-//     modulated sample S[c][p] = sum_corners w * x[corner][c] into shared
-//     memory (one warp per pixel row, lanes on consecutive channels, so the
-//     NHWC row reads coalesce), stages W_k[c0:c0+CK, o0:o0+TC] beside it,
-//     and contracts the two in an f32 register accumulator (4x4 outputs a
-//     thread, float4 shared loads);
-//   * it adds the bias and writes the NHWC output in the input's type.
+// What bounds it on an H100 SXM (computed from the shapes, node by node,
+// the larger of bytes over 3.35 TB/s and operations over the tensor-core
+// peak): the 16 DCN nodes of DLA-34 at 512x1024 take at least 0.0345 ms a
+// bf16 frame at batch 1, mostly bytes (the f32 offsets and masks, 108 B a
+// pixel, and the activations; the wide-channel nodes sit just above the
+// ~295 FLOP/byte ridge); in f32 at batch 4 (a train step's forward) at
+// least 0.253 ms, mostly operations: 113.5 GFLOP at the TF32 rate of 495
+// TFLOP/s (counting each product once; 3xTF32 issues three).  The gather
+// reads four corner rows for every (pixel, tap) sample, from L1/L2, which
+// the bound does not count.
 //
-// What bounds it on an H100, in every mode (the clamp costs two
-// instructions a tap and moves no byte): the 16 DCN nodes of DLA-34 at
-// 512x1024 need ~28 GFLOP a frame (~28 us at the bf16 tensor-core peak)
-// and move ~85 MB (~25 us at 3.35 TB/s); node by node the larger of the
-// two sums to 0.0345 ms a bf16 frame at batch 1, mostly bytes: the
-// wide-channel nodes sit above the ~295 FLOP/byte ridge, the 64-channel
-// stride-4 nodes below it, where the f32 offsets and masks (108 B a
-// pixel) outweigh the bf16 activations.  This version contracts on the
-// CUDA cores in f32 (67 TFLOP/s peak, less the shared-memory operand
-// traffic), not on the tensor cores, so it runs far from that bound; the
-// gather is also redone once per output-channel tile.  Later work: stage
-// the sampled tile in bf16 and contract it with `wgmma` (tile of 64 pixels
-// x Cout, K = CK), keep all of Cout in one block so each sample is gathered
-// once, and double-buffer the W_k slices with TMA while the warps gather
-// the next chunk.
+// Design, against what held v2 (a SIMT kernel at ~1 % of the bound):
+//   * One block owns TP = 64 output pixels and a tile of BN = 64, 128 or
+//     256 output channels: all of Cout up to 256 (wider Cout walks N tiles
+//     of 256 on the grid's y axis).  So each (pixel, tap, channel) sample
+//     is gathered once per block; v2 gathered it once per 64 channels.
+//   * As in v2 the block first computes, for its pixels and the taps of
+//     its K range, the flat index of each bilinear corner (-1 outside the
+//     image) and its weight bilinear * mask, in f32 from the f32 offsets,
+//     with v2's arithmetic ((grid + tap) + offset, floorf fractions).
+//   * K runs over chunks of one tap and CK channels (CK * sizeof(T) = 128
+//     bytes: 64 bf16 or 32 f32 channels).  For each chunk every thread
+//     loads 16 bytes (8 bf16 / 4 f32 channels) of each of the four corner
+//     rows of two pixels, unconditionally (indices clamped into the tensor,
+//     the select after the load; a scalar path where Cin is not a multiple
+//     of the vector width), blends them in f32 and rounds once to the
+//     operand type, into the A tile [pixel][channel] in shared memory.
+//     W_k's (CK x BN) slice comes in by cp.async (zero-filled outside
+//     Cin x Cout).  Rows of both tiles are padded by 16 bytes (bf16) or by
+//     16 / 32 bytes (f32 A / B), so the tensor cores' fragment loads hit 32
+//     distinct banks: the padding plays the part of a swizzle.
+//   * The contraction runs on the tensor cores with mma.sync: 8 warps,
+//     2 along the pixels x 4 along the channels, each a 32 x BN/4 tile of
+//     m16n8 products (64 f32 accumulators a thread at BN = 256).  bf16:
+//     m16n8k16 from ldmatrix fragments.  f32: m16n8k8 TF32, each operand
+//     split by masks into a TF32 high and low part as its fragment is
+//     loaded, and hi*lo + lo*hi + hi*hi summed in f32: f32 accuracy
+//     (a relative error of a few 1e-6 against the plain version) at three
+//     tensor-core products, where plain TF32 (~1e-3) would break the 1e-4
+//     tolerance.
+//     Why mma.sync and not wgmma: (1) TF32 wgmma reads both operands
+//     K-major from shared memory, while W_k is [Cin][Cout] (N-major);
+//     mma.sync takes B from registers, so one [k][n] tile and one layout
+//     serve both types with no transposed weight copy; (2) the A tile is
+//     built by the same threads that multiply (TMA cannot gather), and
+//     wgmma's 64 x BN accumulator held by one warpgroup (128 registers a
+//     thread at BN = 256) leaves no room for the gather's in-flight loads,
+//     where mma.sync spreads it over 8 warps; (3) in bf16 the products are
+//     a small share of the time, which the gathers and the latency of each
+//     chunk set.  In f32 the 3xTF32 products and their splits are about
+//     half of the time: wgmma, with both operands split once into
+//     K-major shared-memory tiles, is the next step there.
+//   * Chunk i+1 is gathered while chunk i is contracted: its corner loads
+//     and its W_k cp.async are issued before chunk i's MMAs and blended and
+//     stored after them, into the other stage of a two-stage ring.  Every
+//     thread both produces and consumes, so one __syncthreads a chunk is
+//     the ring's full and empty barrier at once (v2 had two a chunk and no
+//     overlap).
+//   * Split K, deterministically: where the (pixel, Cout) tiles do not
+//     cover the SMs, the wrapper (kernels/dcn.py::fwd_plan) cuts the
+//     chunks into `splits` contiguous ranges, one per blockIdx.z.  Each
+//     split writes its f32 partial sums to its own slice of a workspace;
+//     dcn_fwd_reduce then sums the slices in split order, adds the bias
+//     and casts.  No atomics: the output is bit-equal from run to run.
+//     With one split the bias and the cast run in this kernel's epilogue.
 //
 // Plain C interface, bound from Python with ctypes
 // (centerpoly_tpu_torch/kernels/dcn.py).  Pointers are device pointers;
-// the kernel runs on the caller's stream and allocates nothing.
+// the kernels run on the caller's stream and allocate nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+#include "dcn_tile.cuh"
 
 namespace {
 
-constexpr int TP = 64;        // output pixels per block
-constexpr int TC = 64;        // output channels per block
-constexpr int CK = 32;        // input channels per staged chunk
-constexpr int THREADS = 256;  // 8 warps
-constexpr int SP = TP + 4;    // padded row of the sampled tile (float4-aligned)
+using namespace dcn_tile;
+
+constexpr int TP = 64;          // output pixels per block
+constexpr int THREADS = 256;    // 8 warps: 2 (pixels) x 4 (channels)
+constexpr int ROW_BYTES = 128;  // one pixel's channels of a K chunk
+constexpr int MAX_TAPS = 9;
+constexpr int CORNER_BYTES = MAX_TAPS * 4 * TP * 4;  // s_idx, and s_wgt
+
+// clamp modes: which offset axes are clamped to [-R, R]
+constexpr int CLAMP_NONE = 0, CLAMP_Y = 1, CLAMP_XY = 2;
+
+template <typename T>
+struct Geom {
+  static constexpr int VEC = 16 / sizeof(T);        // channels a 16-byte load
+  static constexpr int CK = ROW_BYTES / sizeof(T);  // channels a K chunk
+  static constexpr int SA = CK + VEC;               // A row stride (elements)
+};
+
+template <typename T, int BN>
+constexpr int smem_bytes() {
+  return 2 * CORNER_BYTES +
+         2 * (TP * Geom<T>::SA + Geom<T>::CK * (BN + 8)) * (int)sizeof(T);
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -78,30 +136,94 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// clamp modes: which offset axes are clamped to [-R, R]
-constexpr int CLAMP_NONE = 0, CLAMP_Y = 1, CLAMP_XY = 2;
+// 16 bytes <-> VEC values in f32
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
+  __nv_bfloat162 h[4];
+  memcpy(h, &u, 16);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+  __nv_bfloat162 h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  uint4 u;
+  memcpy(&u, h, 16);
+  return u;
+}
 
-template <typename T, int CLAMP>
-__global__ void __launch_bounds__(THREADS)
+// an output pair (o, o + 1) of one pixel row; vector store where Cout is
+// even (o is even, so the pair is aligned and lies inside the row)
+template <typename D>
+__device__ __forceinline__ void store_pair(D* row, int o, int Cout, float v0,
+                                           float v1) {
+  if ((Cout & 1) == 0 && o < Cout) {
+    if constexpr (std::is_same<D, float>::value)
+      *reinterpret_cast<float2*>(row + o) = make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(row + o) =
+          __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (o < Cout) row[o] = from_f32<D>(v0);
+    if (o + 1 < Cout) row[o + 1] = from_f32<D>(v1);
+  }
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS, BN == 256 ? 1 : 2)
 dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
-               const float* __restrict__ off,  // (B, H, W, 18) (dy, dx) per tap
+               const float* __restrict__ off,  // (B, H, W, 18) (dy, dx)
                const float* __restrict__ mask, // (B, H, W, 9)
                const T* __restrict__ w,        // (9, C, Cout)
                const T* __restrict__ bias,     // (Cout,)
                T* __restrict__ out,            // (B, H, W, Cout)
-               int npix, int H, int W, int C, int Cout, float R) {
-  __shared__ int s_idx[9][4][TP];    // flat pixel of each corner, -1 outside
-  __shared__ float s_wgt[9][4][TP];  // bilinear weight * mask
-  __shared__ __align__(16) float s_samp[CK][SP];
-  __shared__ __align__(16) float s_w[CK][TC];
+               float* __restrict__ ws,         // (splits, B*H*W, Cout) or null
+               int npix, int H, int W, int C, int Cout, int clamp, float R,
+               int vec_x, int vec_w) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int VEC = Geom<T>::VEC, CK = Geom<T>::CK, SA = Geom<T>::SA;
+  constexpr int SB = BN + 8;           // B row stride (elements)
+  constexpr int WN = BN / 4;           // a warp's channels
+  constexpr int NT = WN / 8;           // its n8 tiles
+  constexpr int A_STAGE = TP * SA;     // elements
+  constexpr int B_STAGE = CK * SB;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  int(*s_idx)[4][TP] = reinterpret_cast<int(*)[4][TP]>(smem);
+  float(*s_wgt)[4][TP] =
+      reinterpret_cast<float(*)[4][TP]>(smem + CORNER_BYTES);
+  T* sA = reinterpret_cast<T*>(smem + 2 * CORNER_BYTES);
+  T* sB = sA + 2 * A_STAGE;
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * TP;
-  const int o0 = blockIdx.y * TC;
+  const int n0 = blockIdx.y * BN;
+  const int cpt = (C + CK - 1) / CK;  // chunks a tap
+  const long long kchunks = 9LL * cpt;
+  const int kc_begin = (int)(blockIdx.z * kchunks / gridDim.z);
+  const int kc_end = (int)((blockIdx.z + 1) * kchunks / gridDim.z);
+  const int tap_lo = kc_begin / cpt;
+  const int ntaps = (kc_end - 1) / cpt - tap_lo + 1;
 
-  // corner indices and weights of every (tap, pixel) of the tile
-  for (int e = tid; e < 9 * TP; e += THREADS) {
-    const int k = e / TP;
+  // corner indices and weights of every (tap, pixel) of the K range
+  for (int e = tid; e < ntaps * TP; e += THREADS) {
+    const int kt = e / TP;
+    const int k = tap_lo + kt;
     const int p = e % TP;
     const int n = p0 + p;
     int id[4] = {-1, -1, -1, -1};
@@ -113,8 +235,8 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
       const int xx = hw % W;
       float oy = off[(size_t)n * 18 + 2 * k];
       float ox = off[(size_t)n * 18 + 2 * k + 1];
-      if (CLAMP != CLAMP_NONE) oy = fminf(fmaxf(oy, -R), R);
-      if (CLAMP == CLAMP_XY) ox = fminf(fmaxf(ox, -R), R);
+      if (clamp != CLAMP_NONE) oy = fminf(fmaxf(oy, -R), R);
+      if (clamp == CLAMP_XY) ox = fminf(fmaxf(ox, -R), R);
       // same association as the JAX oracle: (grid + tap) + offset
       const float sy = (float)(yy + k / 3 - 1) + oy;
       const float sx = (float)(xx + k % 3 - 1) + ox;
@@ -138,124 +260,307 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      s_idx[k][q][p] = id[q];
-      s_wgt[k][q][p] = wt[q];
+      s_idx[kt][q][p] = id[q];
+      s_wgt[kt][q][p] = wt[q];
     }
   }
+  __syncthreads();
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // the gather: thread -> 16-byte group `grp` of pixel rows prow, prow + 32
+  const int grp = tid & 7;
+  const int prow = tid >> 3;
 
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int ty = tid / 16;  // pixels ty*4 .. ty*4+3
-  const int tx = tid % 16;  // channels tx*4 .. tx*4+3
-
-  for (int k = 0; k < 9; ++k) {
-    for (int c0 = 0; c0 < C; c0 += CK) {
-      __syncthreads();  // previous chunk fully consumed (and corners written)
-      // gather: warp `warp` fills pixels warp*8 .. warp*8+7, lane = channel.
-      // Every load is unconditional (indices clamped into the tensor) and
-      // the select comes after it, so a thread issues its 32 corner loads
-      // together instead of one latency at a time behind a branch.
-      const int c = c0 + lane;
-      const size_t cl = c < C ? c : C - 1;
+  // issue the 8 corner loads of chunk kc into registers
+  auto load_x = [&](int kc, uint4 (&raw)[2][4]) {
+    const int tap = kc / cpt;
+    const int c = (kc - tap * cpt) * CK + grp * VEC;
+    const int kt = tap - tap_lo;
 #pragma unroll
-      for (int r = 0; r < TP / 8; ++r) {
-        const int p = warp * (TP / 8) + r;
-        float v = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int p = prow + 32 * h;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int id = s_idx[k][q][p];
-          const float xv = to_f32(x[(size_t)(id < 0 ? 0 : id) * C + cl]);
-          v += id >= 0 ? s_wgt[k][q][p] * xv : 0.f;
+      for (int q = 0; q < 4; ++q) {
+        const int id = s_idx[kt][q][p];
+        const T* row = x + (size_t)(id < 0 ? 0 : id) * C;
+        if (vec_x) {
+          raw[h][q] = __ldg(reinterpret_cast<const uint4*>(
+              row + (c < C ? c : C - VEC)));
+        } else {
+          T v[VEC];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) v[j] = row[min(c + j, C - 1)];
+          memcpy(&raw[h][q], v, 16);
         }
-        s_samp[lane][p] = c < C ? v : 0.f;
-      }
-      // stage W_k[c0:c0+CK, o0:o0+TC], zero outside Cin x Cout
-      for (int e = tid; e < CK * TC; e += THREADS) {
-        const int ci = c0 + e / TC;
-        const int oi = o0 + e % TC;
-        const float v = to_f32(w[((size_t)k * C + (ci < C ? ci : C - 1)) * Cout
-                                 + (oi < Cout ? oi : Cout - 1)]);
-        s_w[e / TC][e % TC] = ci < C && oi < Cout ? v : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int cc = 0; cc < CK; ++cc) {
-        const float4 a = *reinterpret_cast<const float4*>(&s_samp[cc][ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&s_w[cc][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
     }
+  };
+
+  // blend the corners of chunk kc in f32 and store the modulated samples,
+  // rounded once to T, into the A tile
+  auto store_a = [&](int kc, const uint4 (&raw)[2][4], T* As) {
+    const int tap = kc / cpt;
+    const int c = (kc - tap * cpt) * CK + grp * VEC;
+    const int kt = tap - tap_lo;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = prow + 32 * h;
+      float v[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) v[j] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool in = s_idx[kt][q][p] >= 0;
+        const float wq = s_wgt[kt][q][p];
+        float xv[VEC];
+        unpack(raw[h][q], xv);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) v[j] += in ? wq * xv[j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        if (c + j >= C) v[j] = 0.f;
+      *reinterpret_cast<uint4*>(As + p * SA + grp * VEC) = pack(v);
+    }
+  };
+
+  // W_k[c0:c0+CK, n0:n0+BN] into a B stage, zero outside Cin x Cout
+  auto stage_w = [&](int kc, T* Bs) {
+    const int tap = kc / cpt;
+    const int c0 = (kc - tap * cpt) * CK;
+    if (vec_w) {
+      constexpr int GPR = BN / VEC;  // 16-byte groups a row
+      for (int e = tid; e < CK * GPR; e += THREADS) {
+        const int r = e / GPR;
+        const int o = n0 + (e % GPR) * VEC;
+        const bool ok = c0 + r < C && o < Cout;
+        cp_async16(Bs + r * SB + (e % GPR) * VEC,
+                   ok ? w + ((size_t)tap * C + c0 + r) * Cout + o : w, ok);
+      }
+      cp_async_commit();
+    } else {
+      for (int e = tid; e < CK * BN; e += THREADS) {
+        const int r = e / BN;
+        const int o = n0 + e % BN;
+        Bs[r * SB + e % BN] = c0 + r < C && o < Cout
+                                  ? w[((size_t)tap * C + c0 + r) * Cout + o]
+                                  : from_f32<T>(0.f);
+      }
+    }
+  };
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int wm = warp & 1;   // pixels wm*32 .. +32
+  const int wn = warp >> 1;  // channels wn*WN .. +WN of the tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mi][nj][i] = 0.f;
+
+  // acc += A (TP x CK) B (CK x BN) on the tensor cores
+  auto mma_chunk = [&](const T* As, const T* Bs) {
+    if constexpr (BF16) {
+#pragma unroll
+      for (int ks = 0; ks < CK / 16; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldmatrix_x4(a[mi], As + (wm * 32 + mi * 16 + (lane & 15)) * SA +
+                                 ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int nj = 0; nj < NT; nj += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Bs + (ks * 16 + (lane & 15)) * SB + wn * WN +
+                                   nj * 8 + (lane >> 4) * 8);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_bf16(acc[mi][nj], a[mi], b[0], b[1]);
+            mma_bf16(acc[mi][nj + 1], a[mi], b[2], b[3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < CK / 8; ++ks) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const float* a = As + (wm * 32 + mi * 16 + g) * SA + ks * 8 + t;
+          split_tf32(a[0], ah[mi][0], al[mi][0]);
+          split_tf32(a[8 * SA], ah[mi][1], al[mi][1]);
+          split_tf32(a[4], ah[mi][2], al[mi][2]);
+          split_tf32(a[8 * SA + 4], ah[mi][3], al[mi][3]);
+        }
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) {
+          const float* b = Bs + (ks * 8 + t) * SB + wn * WN + nj * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b[0], bh0, bl0);
+          split_tf32(b[4 * SB], bh1, bl1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_tf32(acc[mi][nj], al[mi], bh0, bh1);
+            mma_tf32(acc[mi][nj], ah[mi], bl0, bl1);
+            mma_tf32(acc[mi][nj], ah[mi], bh0, bh1);
+          }
+        }
+      }
+    }
+  };
+
+  // the two-stage ring: chunk kc+1 is loaded and staged around chunk kc's
+  // products; one barrier a chunk
+  uint4 raw[2][4];
+  load_x(kc_begin, raw);
+  stage_w(kc_begin, sB);
+  store_a(kc_begin, raw, sA);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int kc = kc_begin; kc < kc_end; ++kc) {
+    const int s = (kc - kc_begin) & 1;
+    const bool more = kc + 1 < kc_end;
+    if (more) {
+      load_x(kc + 1, raw);
+      stage_w(kc + 1, sB + (s ^ 1) * B_STAGE);
+    }
+    mma_chunk(sA + s * A_STAGE, sB + s * B_STAGE);
+    if (more) store_a(kc + 1, raw, sA + (s ^ 1) * A_STAGE);
+    cp_async_wait_all();
+    __syncthreads();
   }
 
+  // epilogue: bias and cast (one split), or this split's f32 partial sums
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = p0 + ty * 4 + i;
-    if (n >= npix) continue;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tx * 4 + j;
-      if (o < Cout)
-        out[(size_t)n * Cout + o] = from_f32<T>(acc[i][j] + to_f32(bias[o]));
+    for (int hf = 0; hf < 2; ++hf) {
+      const int n = p0 + wm * 32 + mi * 16 + g + 8 * hf;
+      if (n >= npix) continue;
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj) {
+        const int o = n0 + wn * WN + nj * 8 + 2 * t;
+        const float v0 = acc[mi][nj][2 * hf];
+        const float v1 = acc[mi][nj][2 * hf + 1];
+        if (ws != nullptr) {
+          store_pair(ws + ((size_t)blockIdx.z * npix + n) * Cout, o, Cout, v0,
+                     v1);
+        } else {
+          const float b0 = o < Cout ? to_f32(bias[o]) : 0.f;
+          const float b1 = o + 1 < Cout ? to_f32(bias[o + 1]) : 0.f;
+          store_pair(out + (size_t)n * Cout, o, Cout, v0 + b0, v1 + b1);
+        }
+      }
     }
-  }
 }
 
-template <typename T, int CLAMP>
-void launch_mode(const void* x, const void* off, const void* mask,
-                 const void* w, const void* bias, void* out, int npix, int H,
-                 int W, int C, int Cout, float R, cudaStream_t stream) {
-  const dim3 grid((npix + TP - 1) / TP, (Cout + TC - 1) / TC);
-  dcn_fwd_kernel<T, CLAMP><<<grid, THREADS, 0, stream>>>(
+// out = sum over splits, in split order, of the partial sums, + bias
+template <typename T>
+__global__ void __launch_bounds__(256)
+dcn_fwd_reduce(const float* __restrict__ ws, const T* __restrict__ bias,
+               T* __restrict__ out, long long total, int Cout, int splits) {
+  const long long e0 = 4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e0 >= total) return;
+  float s[4];
+  if ((total & 3) == 0) {  // 16-byte aligned slices
+    const float4 v = *reinterpret_cast<const float4*>(ws + e0);
+    s[0] = v.x, s[1] = v.y, s[2] = v.z, s[3] = v.w;
+    for (int k = 1; k < splits; ++k) {
+      const float4 u = *reinterpret_cast<const float4*>(ws + k * total + e0);
+      s[0] += u.x, s[1] += u.y, s[2] += u.z, s[3] += u.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i] = 0.f;
+      if (e0 + i < total)
+        for (int k = 0; k < splits; ++k) s[i] += ws[k * total + e0 + i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (e0 + i < total)
+      out[e0 + i] = from_f32<T>(s[i] + to_f32(bias[(e0 + i) % Cout]));
+}
+
+template <typename T, int BN>
+int launch(const void* x, const void* off, const void* mask, const void* w,
+           const void* bias, void* out, float* ws, int npix, int H, int W,
+           int C, int Cout, int clamp, float R, int splits,
+           cudaStream_t stream) {
+  constexpr int VEC = Geom<T>::VEC;
+  constexpr int smem = smem_bytes<T, BN>();
+  // above 48 KB of dynamic shared memory a launch is refused unless the
+  // kernel allows it, once per device (not again while a graph captures)
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !allowed[dev]) {
+    err = cudaFuncSetAttribute(dcn_fwd_kernel<T, BN>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  const int vec_x = C % VEC == 0 && ((uintptr_t)x & 15) == 0;
+  const int vec_w = Cout % VEC == 0 && ((uintptr_t)w & 15) == 0;
+  const dim3 grid((npix + TP - 1) / TP, (Cout + BN - 1) / BN, splits);
+  dcn_fwd_kernel<T, BN><<<grid, THREADS, smem, stream>>>(
       (const T*)x, (const float*)off, (const float*)mask, (const T*)w,
-      (const T*)bias, (T*)out, npix, H, W, C, Cout, R);
+      (const T*)bias, (T*)out, splits > 1 ? ws : nullptr, npix, H, W, C,
+      Cout, clamp, R, vec_x, vec_w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long total = (long long)npix * Cout;
+  dcn_fwd_reduce<T><<<(unsigned)((total + 1023) / 1024), 256, 0, stream>>>(
+      ws, (const T*)bias, (T*)out, total, Cout, splits);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-void launch(const void* x, const void* off, const void* mask, const void* w,
-            const void* bias, void* out, int npix, int H, int W, int C,
-            int Cout, int clamp, float R, cudaStream_t stream) {
-  if (clamp == CLAMP_XY)
-    launch_mode<T, CLAMP_XY>(x, off, mask, w, bias, out, npix, H, W, C, Cout,
-                             R, stream);
-  else if (clamp == CLAMP_Y)
-    launch_mode<T, CLAMP_Y>(x, off, mask, w, bias, out, npix, H, W, C, Cout,
-                            R, stream);
-  else
-    launch_mode<T, CLAMP_NONE>(x, off, mask, w, bias, out, npix, H, W, C,
-                               Cout, R, stream);
+int launch_bn(const void* x, const void* off, const void* mask, const void* w,
+              const void* bias, void* out, float* ws, int npix, int H, int W,
+              int C, int Cout, int clamp, float R, int bn, int splits,
+              cudaStream_t stream) {
+  if (bn == 64)
+    return launch<T, 64>(x, off, mask, w, bias, out, ws, npix, H, W, C, Cout,
+                         clamp, R, splits, stream);
+  if (bn == 128)
+    return launch<T, 128>(x, off, mask, w, bias, out, ws, npix, H, W, C,
+                          Cout, clamp, R, splits, stream);
+  return launch<T, 256>(x, off, mask, w, bias, out, ws, npix, H, W, C, Cout,
+                        clamp, R, splits, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, bias and out share it).
 // clamp: 0 = exact sampling, 1 = y-offsets clamped to [-R, R], 2 = both
-// axes clamped to [-R, R]; another value is refused (cudaErrorInvalidValue).
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// axes clamped to [-R, R].  bn: the output-channel tile, 64, 128 or 256.
+// splits: K ranges, 1 .. 9 * ceil(C / CK); with more than one, ws holds
+// splits * B*H*W * Cout f32 partial sums and a second kernel reduces them.
+// Another value of any of these is refused (cudaErrorInvalidValue).
+// Returns cudaGetLastError() after the launches (0 = cudaSuccess).
 extern "C" int dcn_fwd(const void* x, const void* off, const void* mask,
-                       const void* w, const void* bias, void* out, int B,
-                       int H, int W, int C, int Cout, int dtype, int clamp,
-                       float R, void* stream) {
-  if (clamp < CLAMP_NONE || clamp > CLAMP_XY)
+                       const void* w, const void* bias, void* out, void* ws,
+                       int B, int H, int W, int C, int Cout, int dtype,
+                       int clamp, float R, int bn, int splits, void* stream) {
+  const int ck = dtype == 1 ? Geom<__nv_bfloat16>::CK : Geom<float>::CK;
+  if (clamp < CLAMP_NONE || clamp > CLAMP_XY || (dtype != 0 && dtype != 1) ||
+      (bn != 64 && bn != 128 && bn != 256) || C <= 0 || splits < 1 ||
+      splits > 9 * ((C + ck - 1) / ck) || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const int npix = B * H * W;
-  if (npix > 0 && Cout > 0) {
-    if (dtype == 1)
-      launch<__nv_bfloat16>(x, off, mask, w, bias, out, npix, H, W, C, Cout,
-                            clamp, R, (cudaStream_t)stream);
-    else
-      launch<float>(x, off, mask, w, bias, out, npix, H, W, C, Cout, clamp,
-                    R, (cudaStream_t)stream);
-  }
-  return (int)cudaGetLastError();
+  if (npix <= 0 || Cout <= 0) return (int)cudaGetLastError();
+  if (dtype == 1)
+    return launch_bn<__nv_bfloat16>(x, off, mask, w, bias, out, (float*)ws,
+                                    npix, H, W, C, Cout, clamp, R, bn, splits,
+                                    (cudaStream_t)stream);
+  return launch_bn<float>(x, off, mask, w, bias, out, (float*)ws, npix, H, W,
+                          C, Cout, clamp, R, bn, splits, (cudaStream_t)stream);
 }

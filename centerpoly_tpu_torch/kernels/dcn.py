@@ -32,24 +32,38 @@ csrc/dcn_bwd.cu (each built with nvcc for sm_90a at first use, bound
 through a plain C interface) or raises; on a CPU tensor the forward is
 `deform_conv2d_ref` and the backward is autograd through it
 (`deform_conv2d_backward_ref`).  The kernels take f32 or bf16
-activations and weights and accumulate in f32.
+activations and weights and accumulate in f32.  The forward contracts on
+the tensor cores (bf16; f32 as 3xTF32, f32-accurate) and, where its tiles
+do not cover the card's SMs, splits K into ranges (`fwd_plan`) whose f32
+partial sums a second kernel adds in a fixed order: the output does not
+change from run to run.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
+from typing import NamedTuple
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("dcn_fwd", "dcn_bwd")}
+CSRC = os.path.join(_PKG, "csrc")
+KERNELS = ("dcn_fwd", "dcn_bwd")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", CSRC]
+
+# dcn_fwd's tiles (csrc/dcn_fwd.cu): output pixels a block, bytes of one
+# pixel's channels in a K chunk (64 bf16 or 32 f32 channels), and the
+# output-channel tiles
+FWD_TILE_PIXELS = 64
+FWD_CHUNK_BYTES = 128
+FWD_CHANNEL_TILES = (64, 128, 256)
 
 # kernel launches by kernel and clamp mode; only the CUDA branches count,
 # so a run can show that its DCN nodes went through the kernels
@@ -75,9 +89,15 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library of csrc/<name>.cu, keyed on every *.cu and *.cuh file
+    under csrc/ (any of them may be included) and on the nvcc flags, so an
+    edited header cannot leave a stale library in BUILD_DIR."""
+    h = hashlib.sha256(" ".join(f for f in NVCC_FLAGS if f != CSRC).encode())
+    for fn in sorted(os.listdir(CSRC)):
+        if fn.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, fn), "rb") as f:
+                h.update(fn.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build() -> dict[str, tuple[str, str]]:
@@ -85,13 +105,14 @@ def build() -> dict[str, tuple[str, str]]:
     one nvcc process per source, all started together.  Returns
     {name: (library path, nvcc's ptxas report)}."""
     procs = {}
-    for name, src in SOURCES.items():
+    for name in KERNELS:
         lib = _lib_path(name)
         if not os.path.exists(lib):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.tmp"
             procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(CSRC, f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 tmp, lib)
     failed = []
@@ -106,7 +127,7 @@ def build() -> dict[str, tuple[str, str]]:
     if failed:
         raise RuntimeError("\n".join(failed))
     ret = {}
-    for name in SOURCES:
+    for name in KERNELS:
         lib = _lib_path(name)
         with open(lib[:-3] + ".log") as f:
             ret[name] = (lib, f.read())
@@ -118,8 +139,8 @@ def _load(name: str):
         lib = ctypes.CDLL(build()[name][0])
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "dcn_fwd":
-            lib.dcn_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                    ctypes.c_float, p]
+            lib.dcn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                    i, ctypes.c_float, i, i, p]
             lib.dcn_fwd.restype = i
         else:
             lib.dcn_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
@@ -273,6 +294,49 @@ def deform_conv2d_backward_ref(x, offsets, masks, weights, bias, g,
         return torch.autograd.grad(out, leaves, g)
 
 
+class FwdPlan(NamedTuple):
+    """How csrc/dcn_fwd.cu cuts one forward: a grid of m_tiles pixel tiles
+    x n_tiles channel tiles of width bn x `splits` K ranges.  K runs over
+    k_chunks chunks, tap-major: chunk kc is tap kc // (k_chunks // 9),
+    channels ck * (kc % (k_chunks // 9)) onwards."""
+    bn: int
+    ck: int
+    m_tiles: int
+    n_tiles: int
+    k_chunks: int
+    splits: int
+
+    def split_chunks(self, s: int) -> range:
+        """The K chunks of split s (the kernel's own formula)."""
+        return range(s * self.k_chunks // self.splits,
+                     (s + 1) * self.k_chunks // self.splits)
+
+
+def fwd_plan(npix: int, cin: int, cout: int, n_sm: int,
+             dtype: torch.dtype = torch.bfloat16) -> FwdPlan:
+    """The tiles and the split-K of dcn_fwd for B*H*W = npix pixels.  One
+    split where the (pixel, channel) tiles cover the n_sm SMs; else enough
+    splits that tiles x splits does, never more than there are K chunks.
+    The splits' partial sums are reduced in a fixed order, so the result
+    does not depend on the plan's timing, only on the plan."""
+    ck = FWD_CHUNK_BYTES // dtype.itemsize
+    bn = next((b for b in FWD_CHANNEL_TILES if cout <= b),
+              FWD_CHANNEL_TILES[-1])
+    m_tiles = -(-npix // FWD_TILE_PIXELS)
+    n_tiles = -(-cout // bn)
+    k_chunks = 9 * -(-cin // ck)
+    tiles = m_tiles * n_tiles
+    # an empty output (no tiles) launches nothing and needs no workspace
+    splits = (1 if tiles == 0 or tiles >= n_sm
+              else max(1, min(k_chunks, -(-n_sm // tiles))))
+    return FwdPlan(bn, ck, m_tiles, n_tiles, k_chunks, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(x, offsets, masks, weights, bias, g=None):
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dcn: x must be float32 or bfloat16, got {x.dtype}")
@@ -311,14 +375,22 @@ def _forward(x, offsets, masks, weights, bias, max_offset_y, max_offset):
     _check(x, offsets, masks, weights, bias)
     b, h, w, cin = x.shape
     cout = weights.shape[-1]
+    npix = b * h * w
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     lib = _load("dcn_fwd")
     with torch.cuda.device(x.device):
+        plan = fwd_plan(npix, cin, cout,
+                        _sm_count(torch.cuda.current_device()), x.dtype)
+        # the splits' f32 partial sums (stream-ordered: its memory is
+        # reused only after the reduce has run)
+        ws = (torch.empty((plan.splits, npix, cout), dtype=torch.float32,
+                          device=x.device) if plan.splits > 1 else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dcn_fwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
                           weights.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                          b, h, w, cin, cout, _DTYPE_CODE[x.dtype],
-                          _CLAMP_CODE[mode], r or 0.0, stream)
+                          None if ws is None else ws.data_ptr(), b, h, w, cin,
+                          cout, _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode],
+                          r or 0.0, plan.bn, plan.splits, stream)
     if err != 0:
         raise RuntimeError(f"dcn_fwd launch failed: cudaError {err}")
     launches[mode] += 1

@@ -17,11 +17,13 @@ result line):
   2. build csrc/dcn_fwd.cu and csrc/dcn_bwd.cu with nvcc (sm_90a), one
      process each, and print ptxas's report;
   3. the forward kernel against `deform_conv2d_ref` at the 7 DCN node
-     shapes of the path, exact, rowband:6 and halo:4, f32 (TF32 off;
-     relative max 1e-4: the same f32 arithmetic summed in another order)
-     and bf16 (relative max 2e-2: the plain version rounds the bilinear
-     fractions and corner products to bf16, deform_conv.py:122, the kernel
-     keeps them in f32);
+     shapes of the path and at the card tests' tile shapes (split K, one
+     pixel, Cout 300, f32 at batch 4), exact, rowband:6 and halo:4, f32
+     (TF32 off; relative max 1e-4: the kernel's 3xTF32 products keep f32
+     accuracy, summed in another order) and bf16 (relative max 2e-2: the
+     plain version rounds the bilinear fractions and corner products to
+     bf16, deform_conv.py:122, the kernel blends in f32 and rounds the
+     modulated sample once); then two calls bit-equal, split and unsplit;
   4. the slice: bf16 detector (the inference default rowband:6, then the
      exact `off` mode) on seeded frames, each path run with the launch
      counts zeroed just before and read just after (16 a forward); f32 on
@@ -31,9 +33,13 @@ result line):
      frame, f32 heads on the card against the CPU, and
      `tools/analyze_dcn_offsets` on the same weights and frame, whose
      clamp must bite (`phase_halo_slice`);
-  6. times with CUDA events at each node shape (kernel, plain version,
-     bound) in the three modes, and end to end per frame (`run`,
-     `run_batch`, `run_stream`);
+  6. times with CUDA events at each node shape (kernel calls replayed
+     from a CUDA graph, i.e. device time, and eager; plain version,
+     bound, share of the bound, TFLOP/s, K splits; a dense 3x3 cuDNN conv
+     of the same shape beside it for context) in the three modes, the f32
+     batch-4 forward of a train step per node and per step against its
+     TF32 bound, and end to end per frame (`run`, `run_batch`,
+     `run_stream`);
   7. device time by kernel and the device's busy share (torch.profiler),
      and the busy share of `run` and `run_stream` in halo:4;
   8. csrc/dcn_bwd.cu against the plain backward at the 7 node shapes,
@@ -71,6 +77,7 @@ NODE_SHAPES = {(16, 32, 512, 256): 1, (32, 64, 256, 256): 1,
                (64, 128, 128, 64): 4, (32, 64, 256, 64): 1,
                (128, 256, 64, 64): 5}
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12    # H100 SXM dense TF32 (the f32 forward's 3xTF32)
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 FRAME_HW = (1024, 2048)
@@ -100,6 +107,12 @@ BWD_CLAMPS = {"exact": {}, "rowband": {"max_offset_y": TRAIN_R},
 TRAIN_FLAGS = ["--rep", "polar", "--poly_loss", "l1+iou", "--poly_order",
                "--lr", "2e-4"]
 BWD_NAMES = ("dx", "doffsets", "dmasks", "dweights", "dbias")
+# the forward's tile cases of tests/test_torch_gpu.py, (B, H, W, Cin, Cout):
+# split K, one pixel, two channel tiles (the second ragged), f32 at batch 4
+TILE_CASES = {(1, 16, 32, 512, 256): ("float32", "bfloat16"),
+              (1, 1, 1, 64, 64): ("float32", "bfloat16"),
+              (1, 8, 8, 40, 300): ("float32", "bfloat16"),
+              (4, 64, 128, 128, 64): ("float32",)}
 
 
 def check(cond: bool, msg: str):
@@ -117,6 +130,32 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one call: `iters` calls captured in a CUDA graph and
+    replayed between two CUDA events, so the host's time to enqueue each
+    call (Python, the wrapper's checks and allocations) leaves no gap on
+    the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -205,26 +244,51 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
 
 
+def fwd_splits(shape, batch, dtype) -> int:
+    import torch
+    from centerpoly_tpu_torch.kernels import dcn
+    h, w, cin, cout = shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return dcn.fwd_plan(batch * h * w, cin, cout, n_sm, dtype).splits
+
+
 def phase_kernel_vs_plain():
     import torch
     from centerpoly_tpu_torch.kernels import dcn
     torch.backends.cuda.matmul.allow_tf32 = False
+    tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    cases = [(shape, 1, dtype) for shape in NODE_SHAPES for dtype in tols]
+    cases += [(shape[1:], shape[0], getattr(torch, dt))
+              for shape, dts in TILE_CASES.items() for dt in dts]
     errs = dict.fromkeys(FWD_CLAMPS, 0.0)
-    for i, shape in enumerate(NODE_SHAPES):
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            args = node_inputs(shape, dtype, SEED + i)
-            for mode, kw in FWD_CLAMPS.items():
-                got = dcn.deform_conv2d(*args, **kw)
-                ref = dcn.deform_conv2d_ref(*args, **kw)
-                torch.cuda.synchronize()
-                diff = (got.float() - ref.float()).abs().max().item()
-                rel = diff / ref.float().abs().max().item()
-                print(f"[kernel] {shape} {mode:7s} {str(dtype)[6:]:8s} "
-                      f"max_abs {diff:.3e} rel_max {rel:.3e} (tol {tol:g})")
-                check(np.isfinite(rel) and rel < tol,
-                      f"kernel disagrees at {shape} {mode} {dtype}")
-                if dtype == torch.bfloat16:
-                    errs[mode] = max(errs[mode], diff)
+    for i, (shape, batch, dtype) in enumerate(cases):
+        tol = tols[dtype]
+        args = node_inputs(shape, dtype, SEED + i, batch)
+        for mode, kw in FWD_CLAMPS.items():
+            got = dcn.deform_conv2d(*args, **kw)
+            ref = dcn.deform_conv2d_ref(*args, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs().max().item()
+            rel = diff / ref.float().abs().max().item()
+            print(f"[kernel] b{batch} {shape} {mode:7s} {str(dtype)[6:]:8s} "
+                  f"splits {fwd_splits(shape, batch, dtype):2d} max_abs "
+                  f"{diff:.3e} rel_max {rel:.3e} (tol {tol:g})")
+            check(np.isfinite(rel) and rel < tol,
+                  f"kernel disagrees at b{batch} {shape} {mode} {dtype}")
+            if dtype == torch.bfloat16 and batch == 1 and shape in NODE_SHAPES:
+                errs[mode] = max(errs[mode], diff)
+        del args
+    # determinism: split K (16x32) and unsplit (128x256), both types
+    for shape in ((16, 32, 512, 256), (128, 256, 64, 64)):
+        for dtype in tols:
+            args = node_inputs(shape, dtype, SEED)
+            first = dcn.deform_conv2d(*args, **FWD_CLAMPS["halo"])
+            second = dcn.deform_conv2d(*args, **FWD_CLAMPS["halo"])
+            torch.cuda.synchronize()
+            check(torch.equal(first, second),
+                  f"two calls differ at {shape} {dtype}")
+            print(f"[kernel] {shape} {str(dtype)[6:]:8s} splits "
+                  f"{fwd_splits(shape, 1, dtype)}: two calls bit-equal")
     return errs
 
 
@@ -429,25 +493,39 @@ def phase_halo_slice(sd, frames, root):
 def phase_times(det, det_halo, frames):
     import torch
     from centerpoly_tpu_torch.kernels import dcn
+    import torch.nn.functional as F
     per_frame = {m: {"ms": 0.0, "plain_ms": 0.0} for m in FWD_CLAMPS}
-    bound_frame, ops_share = 0.0, 0.0
+    bound_frame, ops_share, conv_frame = 0.0, 0.0, 0.0
     for i, (shape, n) in enumerate(NODE_SHAPES.items()):
         args = node_inputs(shape, torch.bfloat16, SEED + i)
         bound, by = node_bound_ms(shape)
         bound_frame += n * bound
         ops_share += n * bound * (by == "operations")
+        flops = 2.0 * np.prod(shape[:2]) * 9 * shape[2] * shape[3]
+        splits = fwd_splits(shape, 1, torch.bfloat16)
+        # context only, a different function: a dense 3x3 conv of the same
+        # shape through cuDNN (bf16, channels_last); never used by the port
+        xc = args[0].permute(0, 3, 1, 2)
+        wc = args[3].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        conv = graph_ms(lambda: F.conv2d(xc, wc, args[4], padding=1), 20)
+        conv_frame += n * conv
         for mode, kw in FWD_CLAMPS.items():
-            ms = cuda_ms(lambda: dcn.deform_conv2d(*args, **kw), 3, 20)
+            ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 20)
+            eager = cuda_ms(lambda: dcn.deform_conv2d(*args, **kw), 3, 20)
             plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 5)
             per_frame[mode]["ms"] += n * ms
             per_frame[mode]["plain_ms"] += n * plain
-            print(f"[time] {shape} x{n} {mode:7s} kernel {ms:.4f} ms  plain "
-                  f"{plain:.4f} ms  bound {bound:.4f} ms ({by})  "
-                  f"{2 * np.prod(shape[:2]) * 9 * shape[2] * shape[3] / ms / 1e9:.1f}"
-                  f" TFLOP/s")
+            print(f"[time] {shape} x{n} {mode:7s} kernel {ms:.4f} ms "
+                  f"(eager calls {eager:.4f})  plain {plain:.4f} ms  bound "
+                  f"{bound:.4f} ms ({by}, {100 * bound / ms:.1f} % of it)  "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s  splits {splits}  [dense "
+                  f"3x3 cuDNN conv, another function: {conv:.4f} ms]")
     for mode, v in per_frame.items():
         print(f"[time] {mode} per frame (16 nodes): kernel {v['ms']:.3f} ms  "
-              f"plain {v['plain_ms']:.3f} ms  bound {bound_frame:.4f} ms")
+              f"plain {v['plain_ms']:.3f} ms  bound {bound_frame:.4f} ms "
+              f"({100 * bound_frame / v['ms']:.1f} % of it)  [dense 3x3 "
+              f"cuDNN convs of the same shapes: {conv_frame:.3f} ms]")
 
     for d, mode in ((det, "rowband:6"), (det_halo, f"halo:{HALO_R}")):
         tots = []
@@ -477,6 +555,55 @@ def phase_times(det, det_halo, frames):
               f"ms/frame, {n / dt:.2f} frames/s ({n} frames)")
     by = "operations" if ops_share >= bound_frame / 2 else "bytes"
     return per_frame, bound_frame, by
+
+
+def fwd_f32_bound_ms(shape, batch) -> tuple[float, str]:
+    """Least time for one f32 forward of a node on the tensor cores:
+    operations (each product counted once) over the TF32 peak against bytes
+    (x, offsets, masks, W, b read once, the output written once) over
+    HBM."""
+    h, w, cin, cout = shape
+    npix = batch * h * w
+    flops = 2.0 * npix * 9 * cin * cout
+    nbytes = 4.0 * (npix * cin + npix * 27 + 9 * cin * cout + cout
+                    + npix * cout)
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_fwd_train_times():
+    """The forward kernel as a train step runs it (f32, batch 4) per node
+    and per step (16 nodes), in the three modes, against its bound and the
+    plain version."""
+    import torch
+    from centerpoly_tpu_torch.kernels import dcn
+    per_step = {m: {"ms": 0.0, "plain_ms": 0.0} for m in FWD_CLAMPS}
+    bound_step, ops_share = 0.0, 0.0
+    for i, (shape, n) in enumerate(NODE_SHAPES.items()):
+        args = node_inputs(shape, torch.float32, SEED + i, TRAIN_BATCH)
+        bound, by = fwd_f32_bound_ms(shape, TRAIN_BATCH)
+        bound_step += n * bound
+        ops_share += n * bound * (by == "operations")
+        flops = 2.0 * TRAIN_BATCH * np.prod(shape[:2]) * 9 * np.prod(shape[2:])
+        splits = fwd_splits(shape, TRAIN_BATCH, torch.float32)
+        for mode, kw in FWD_CLAMPS.items():
+            ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 10)
+            plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 3)
+            per_step[mode]["ms"] += n * ms
+            per_step[mode]["plain_ms"] += n * plain
+            print(f"[time-f32] {shape} x{n} b{TRAIN_BATCH} {mode:7s} kernel "
+                  f"{ms:.4f} ms  plain {plain:.4f} ms  bound {bound:.4f} ms "
+                  f"({by}, {100 * bound / ms:.1f} % of it)  "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s  splits {splits}")
+        del args
+    for mode, v in per_step.items():
+        print(f"[time-f32] {mode} per step (16 nodes, batch {TRAIN_BATCH}, "
+              f"f32): kernel {v['ms']:.3f} ms  plain {v['plain_ms']:.3f} ms  "
+              f"bound {bound_step:.4f} ms "
+              f"({100 * bound_step / v['ms']:.1f} % of it)")
+    by = "operations" if ops_share >= bound_step / 2 else "bytes"
+    return per_step, bound_step, by
 
 
 def phase_profile(det, det_halo, frames):
@@ -974,6 +1101,7 @@ def main() -> int:
         det, sd, frames, launches = phase_slice()
         det_halo, launches["halo"] = phase_halo_slice(sd, frames, root)
         per_frame, bound_frame, by = phase_times(det, det_halo, frames)
+        f32_step, f32_bound, f32_by = phase_fwd_train_times()
         phase_profile(det, det_halo, frames)
         del det, det_halo
         bwd_errs = phase_bwd_vs_plain()
@@ -989,7 +1117,10 @@ def main() -> int:
                 "launches": launches[mode], "max_abs_err": errs[mode],
                 "ms": per_frame[mode]["ms"],
                 "plain_ms": per_frame[mode]["plain_ms"],
-                "bound_ms": bound_frame, "bound_by": by, "library_ms": None}
+                "bound_ms": bound_frame, "bound_by": by, "library_ms": None,
+                "f32_step_ms": f32_step[mode]["ms"],
+                "f32_step_plain_ms": f32_step[mode]["plain_ms"],
+                "f32_step_bound_ms": f32_bound, "f32_step_bound_by": f32_by}
                for mode in FWD_CLAMPS]
     kernels += [{"name": f"dcn_bwd[{mode}]", "route": "cuda",
                  "source": SOURCES["dcn_bwd"],

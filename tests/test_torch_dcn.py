@@ -223,6 +223,88 @@ def test_dcnv2_layer_matches_flax(monkeypatch, mode, env):
                                np.asarray(ref), **TOL)
 
 
+# (H, W, Cin, Cout) of the 16 DCN nodes of DLA-34 at 512x1024
+NODE_SHAPES = [(16, 32, 512, 256), (32, 64, 256, 256), (32, 64, 256, 128),
+               (64, 128, 128, 128), (64, 128, 128, 64), (32, 64, 256, 64),
+               (128, 256, 64, 64)]
+PLAN_CASES = ([(h * w, cin, cout, 132, dt) for h, w, cin, cout in NODE_SHAPES
+               for dt in (torch.bfloat16, torch.float32)]
+              + [(4 * h * w, cin, cout, 132, torch.float32)
+                 for h, w, cin, cout in NODE_SHAPES]
+              + [(1, 64, 64, 132, torch.bfloat16),
+                 (35, 3, 5, 132, torch.float32),
+                 (64, 40, 300, 132, torch.bfloat16),
+                 (117, 3, 5, 7, torch.float32),
+                 (70, 40, 70, 1, torch.bfloat16),
+                 (1, 1, 1, 1000, torch.float32),
+                 (0, 64, 64, 132, torch.bfloat16)])
+
+
+@pytest.mark.parametrize("npix,cin,cout,n_sm,dtype", PLAN_CASES)
+def test_fwd_plan_covers_k_once(npix, cin, cout, n_sm, dtype):
+    """The splits cut K into contiguous, non-empty ranges that cover every
+    (tap, channel chunk) exactly once; never more splits than chunks; one
+    split wherever the tiles cover the SMs or there are none (no pixels),
+    else tiles x splits covers them (or every chunk is its own split)."""
+    plan = dcn.fwd_plan(npix, cin, cout, n_sm, dtype)
+    assert plan.ck * dtype.itemsize == dcn.FWD_CHUNK_BYTES
+    assert plan.bn >= min(cout, 256) and plan.n_tiles * plan.bn >= cout
+    assert plan.m_tiles * dcn.FWD_TILE_PIXELS >= npix
+    cpt = -(-cin // plan.ck)
+    assert plan.k_chunks == 9 * cpt
+    assert 1 <= plan.splits <= plan.k_chunks
+    seen = []
+    for s in range(plan.splits):
+        r = plan.split_chunks(s)
+        assert len(r) >= 1 and (not seen or r.start == seen[-1] + 1)
+        seen += list(r)
+    assert sorted((kc // cpt, kc % cpt) for kc in seen) == [
+        (tap, c) for tap in range(9) for c in range(cpt)]
+    tiles = plan.m_tiles * plan.n_tiles
+    if tiles == 0 or tiles >= n_sm:    # nothing to launch, or a full card
+        assert plan.splits == 1
+    else:
+        assert (tiles * plan.splits >= n_sm
+                or plan.splits == plan.k_chunks)
+
+
+def test_fwd_plan_fills_the_card_on_small_maps():
+    """At 132 SMs: the 16x32 and 32x64 nodes split K until tiles x splits
+    covers the SMs; the 128x256 node (512 tiles) runs unsplit."""
+    for h, w, cin, cout in NODE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = dcn.fwd_plan(h * w, cin, cout, 132, dtype)
+            tiles = plan.m_tiles * plan.n_tiles
+            assert plan.n_tiles == 1    # all of Cout <= 256 in one block
+            if h <= 32:
+                assert plan.splits > 1 and tiles * plan.splits >= 132
+    assert dcn.fwd_plan(512, 512, 256, 132).splits == 17
+    assert dcn.fwd_plan(128 * 256, 64, 64, 132).splits == 1
+    assert dcn.fwd_plan(1, 64, 300, 132).n_tiles == 2
+
+
+def test_lib_path_tracks_every_source_and_header(tmp_path, monkeypatch):
+    """The built library's name changes when any .cu or .cuh under csrc/
+    changes, so an edited header cannot leave a stale library; other files
+    do not count."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(dcn.CSRC, csrc)
+    monkeypatch.setattr(dcn, "CSRC", str(csrc))
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    assert headers, "csrc/ holds no header"
+    base = {k: dcn._lib_path(k) for k in dcn.KERNELS}
+    (csrc / "notes.txt").write_text("not a source")
+    assert {k: dcn._lib_path(k) for k in dcn.KERNELS} == base
+    for name in (headers[0], "dcn_fwd.cu", "dcn_bwd.cu"):
+        orig = (csrc / name).read_bytes()
+        (csrc / name).write_bytes(orig + b"\n// touched\n")
+        for k in dcn.KERNELS:
+            assert dcn._lib_path(k) != base[k], (name, k)
+        (csrc / name).write_bytes(orig)
+        assert {k: dcn._lib_path(k) for k in dcn.KERNELS} == base
+
+
 def test_layer_init_and_names():
     block = DeformConvBlock(4, 3)
     names = set(block.state_dict())

@@ -71,6 +71,53 @@ def test_kernel_matches_plain(cuda, shape, dtype, tol, r):
     assert _rel(got, ref) < tol
 
 
+CLAMPS = {"exact": {}, "rowband": {"max_offset_y": 2},
+          "halo": {"max_offset": 2}}
+TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the forward's tiles and K splits: the 16x32 512->256 node (split K), one
+# pixel, Cout above 256 and not a multiple of 8 (two channel tiles, the
+# second ragged), and a train step's batch of 4 in f32
+TILE_CASES = [((1, 16, 32, 512, 256), torch.float32),
+              ((1, 16, 32, 512, 256), torch.bfloat16),
+              ((1, 1, 1, 64, 64), torch.float32),
+              ((1, 1, 1, 64, 64), torch.bfloat16),
+              ((1, 8, 8, 40, 300), torch.float32),
+              ((1, 8, 8, 40, 300), torch.bfloat16),
+              ((4, 64, 128, 128, 64), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", TILE_CASES)
+@pytest.mark.parametrize("mode", sorted(CLAMPS))
+def test_kernel_tiles_and_splits_match_plain(cuda, shape, dtype, mode):
+    args = _inputs(cuda, dtype, *shape)
+    before = dict(dcn.launches)
+    got = dcn.deform_conv2d(*args, **CLAMPS[mode])
+    torch.cuda.synchronize()
+    after = dict(dcn.launches)
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {mode: 1}
+    ref = dcn.deform_conv2d_ref(*args, **CLAMPS[mode])
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert _rel(got, ref) < TOLS[dtype]
+
+
+@pytest.mark.parametrize("shape,split", [((1, 16, 32, 512, 256), True),
+                                         ((1, 128, 256, 64, 64), False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(cuda, shape, split, dtype):
+    """Two calls on the same inputs are bit-equal, with K split (partial
+    sums reduced in a fixed order) and unsplit."""
+    args = _inputs(cuda, dtype, *shape)
+    b, h, w, cin, cout = shape
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (dcn.fwd_plan(b * h * w, cin, cout, n_sm, dtype).splits > 1
+            ) == split
+    first = dcn.deform_conv2d(*args, max_offset=4)
+    second = dcn.deform_conv2d(*args, max_offset=4)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_kernel_edges(cuda):
     """Every sample off the image gives the bias alone."""
     x, off, mask, wt, bias = _inputs(cuda, torch.float32, 1, 6, 6, 8, 8)
