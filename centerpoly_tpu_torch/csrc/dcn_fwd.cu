@@ -90,9 +90,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
-
-#include <type_traits>
 
 #include "dcn_tile.cuh"
 
@@ -106,9 +103,6 @@ constexpr int ROW_BYTES = 128;  // one pixel's channels of a K chunk
 constexpr int MAX_TAPS = 9;
 constexpr int CORNER_BYTES = MAX_TAPS * 4 * TP * 4;  // s_idx, and s_wgt
 
-// clamp modes: which offset axes are clamped to [-R, R]
-constexpr int CLAMP_NONE = 0, CLAMP_Y = 1, CLAMP_XY = 2;
-
 template <typename T>
 struct Geom {
   static constexpr int VEC = 16 / sizeof(T);        // channels a 16-byte load
@@ -120,68 +114,6 @@ template <typename T, int BN>
 constexpr int smem_bytes() {
   return 2 * CORNER_BYTES +
          2 * (TP * Geom<T>::SA + Geom<T>::CK * (BN + 8)) * (int)sizeof(T);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// 16 bytes <-> VEC values in f32
-__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
-  v[0] = __uint_as_float(u.x);
-  v[1] = __uint_as_float(u.y);
-  v[2] = __uint_as_float(u.z);
-  v[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
-  __nv_bfloat162 h[4];
-  memcpy(h, &u, 16);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ uint4 pack(const float (&v)[4]) {
-  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                    __float_as_uint(v[2]), __float_as_uint(v[3]));
-}
-__device__ __forceinline__ uint4 pack(const float (&v)[8]) {
-  __nv_bfloat162 h[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  uint4 u;
-  memcpy(&u, h, 16);
-  return u;
-}
-
-// an output pair (o, o + 1) of one pixel row; vector store where Cout is
-// even (o is even, so the pair is aligned and lies inside the row)
-template <typename D>
-__device__ __forceinline__ void store_pair(D* row, int o, int Cout, float v0,
-                                           float v1) {
-  if ((Cout & 1) == 0 && o < Cout) {
-    if constexpr (std::is_same<D, float>::value)
-      *reinterpret_cast<float2*>(row + o) = make_float2(v0, v1);
-    else
-      *reinterpret_cast<__nv_bfloat162*>(row + o) =
-          __floats2bfloat162_rn(v0, v1);
-  } else {
-    if (o < Cout) row[o] = from_f32<D>(v0);
-    if (o + 1 < Cout) row[o + 1] = from_f32<D>(v1);
-  }
 }
 
 template <typename T, int BN>
@@ -229,34 +161,10 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
     int id[4] = {-1, -1, -1, -1};
     float wt[4] = {0.f, 0.f, 0.f, 0.f};
     if (n < npix) {
-      const int hw = n % (H * W);
-      const int base = n - hw;  // first pixel of this image
-      const int yy = hw / W;
-      const int xx = hw % W;
-      float oy = off[(size_t)n * 18 + 2 * k];
-      float ox = off[(size_t)n * 18 + 2 * k + 1];
-      if (clamp != CLAMP_NONE) oy = fminf(fmaxf(oy, -R), R);
-      if (clamp == CLAMP_XY) ox = fminf(fmaxf(ox, -R), R);
-      // same association as the JAX oracle: (grid + tap) + offset
-      const float sy = (float)(yy + k / 3 - 1) + oy;
-      const float sx = (float)(xx + k % 3 - 1) + ox;
-      const float y0 = floorf(sy);
-      const float x0 = floorf(sx);
-      const float fy = sy - y0;
-      const float fx = sx - x0;
-      const float m = mask[(size_t)n * 9 + k];
-      const float cw[4] = {(1.f - fy) * (1.f - fx) * m, (1.f - fy) * fx * m,
-                           fy * (1.f - fx) * m, fy * fx * m};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float yf = y0 + (float)(q >> 1);
-        const float xf = x0 + (float)(q & 1);
-        // compare in float: a wild offset must not overflow an int
-        if (yf >= 0.f && yf < (float)H && xf >= 0.f && xf < (float)W) {
-          id[q] = base + (int)yf * W + (int)xf;
-          wt[q] = cw[q];
-        }
-      }
+      float fy, fx;
+      tap_corners(n, k, off[(size_t)n * 18 + 2 * k],
+                  off[(size_t)n * 18 + 2 * k + 1], H, W, clamp, R, id, fy, fx);
+      bilinear(fy, fx, mask[(size_t)n * 9 + k], wt);
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -278,20 +186,9 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = prow + 32 * h;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int id = s_idx[kt][q][p];
-        const T* row = x + (size_t)(id < 0 ? 0 : id) * C;
-        if (vec_x) {
-          raw[h][q] = __ldg(reinterpret_cast<const uint4*>(
-              row + (c < C ? c : C - VEC)));
-        } else {
-          T v[VEC];
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) v[j] = row[min(c + j, C - 1)];
-          memcpy(&raw[h][q], v, 16);
-        }
-      }
+      const int id[4] = {s_idx[kt][0][p], s_idx[kt][1][p], s_idx[kt][2][p],
+                         s_idx[kt][3][p]};
+      load_corners(x, id, c, C, vec_x, raw[h]);
     }
   };
 
@@ -304,21 +201,12 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int p = prow + 32 * h;
+      const int id[4] = {s_idx[kt][0][p], s_idx[kt][1][p], s_idx[kt][2][p],
+                         s_idx[kt][3][p]};
+      const float wq[4] = {s_wgt[kt][0][p], s_wgt[kt][1][p], s_wgt[kt][2][p],
+                           s_wgt[kt][3][p]};
       float v[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) v[j] = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const bool in = s_idx[kt][q][p] >= 0;
-        const float wq = s_wgt[kt][q][p];
-        float xv[VEC];
-        unpack(raw[h][q], xv);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) v[j] += in ? wq * xv[j] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        if (c + j >= C) v[j] = 0.f;
+      blend<T>(raw[h], id, wq, c, C, v);
       *reinterpret_cast<uint4*>(As + p * SA + grp * VEC) = pack(v);
     }
   };
@@ -403,11 +291,8 @@ dcn_fwd_kernel(const T* __restrict__ x,        // (B, H, W, C)
           split_tf32(b[0], bh0, bl0);
           split_tf32(b[4 * SB], bh1, bl1);
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma_tf32(acc[mi][nj], al[mi], bh0, bh1);
-            mma_tf32(acc[mi][nj], ah[mi], bl0, bl1);
-            mma_tf32(acc[mi][nj], ah[mi], bh0, bh1);
-          }
+          for (int mi = 0; mi < 2; ++mi)
+            mma_3xtf32(acc[mi][nj], ah[mi], al[mi], bh0, bh1, bl0, bl1);
         }
       }
     }

@@ -36,7 +36,10 @@ activations and weights and accumulate in f32.  The forward contracts on
 the tensor cores (bf16; f32 as 3xTF32, f32-accurate) and, where its tiles
 do not cover the card's SMs, splits K into ranges (`fwd_plan`) whose f32
 partial sums a second kernel adds in a fixed order: the output does not
-change from run to run.
+change from run to run.  The backward takes its two products on the
+tensor cores inside two gather kernels (`bwd_plan`) and splits dW over
+pixel ranges the same way; only dx, a scatter by f32 atomics, may differ
+in its last bits between runs.
 """
 from __future__ import annotations
 
@@ -60,10 +63,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # dcn_fwd's tiles (csrc/dcn_fwd.cu): output pixels a block, bytes of one
 # pixel's channels in a K chunk (64 bf16 or 32 f32 channels), and the
-# output-channel tiles
+# output-channel tiles; dcn_bwd_weight (csrc/dcn_bwd.cu) uses the same
+# pixel and output-channel tiles
 FWD_TILE_PIXELS = 64
 FWD_CHUNK_BYTES = 128
 FWD_CHANNEL_TILES = (64, 128, 256)
+# input channels of one dcn_bwd_weight block, either type
+BWD_WEIGHT_CHANNELS = 64
+
+# dcn_bwd_weight's grid is cut into pixel ranges, dcn_bwd_data's into tap
+# ranges, until it holds this many blocks for each SM.  On the H100, a
+# train step's weight kernel took 6.11 / 5.30 / 4.25 / 3.81 ms at 1 / 2 /
+# 4 / 8 blocks an SM; 8 doubles the largest dW workspace (to ~71 MB).
+# Without the tap ranges the data kernel took 7.44 ms, with them 6.40
+# (PERF.md)
+BWD_WAVES = 4
 
 # kernel launches by kernel and clamp mode; only the CUDA branches count,
 # so a run can show that its DCN nodes went through the kernels
@@ -143,8 +157,8 @@ def _load(name: str):
                                     i, ctypes.c_float, i, i, p]
             lib.dcn_fwd.restype = i
         else:
-            lib.dcn_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                    ctypes.c_float, p]
+            lib.dcn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                    i, i, i, i, ctypes.c_float, i, i, i, p]
             lib.dcn_bwd.restype = i
         _libs[name] = lib
     return _libs[name]
@@ -332,6 +346,52 @@ def fwd_plan(npix: int, cin: int, cout: int, n_sm: int,
     return FwdPlan(bn, ck, m_tiles, n_tiles, k_chunks, splits)
 
 
+class BwdPlan(NamedTuple):
+    """How csrc/dcn_bwd.cu cuts one backward.  dcn_bwd_data: m_tiles pixel
+    tiles x `data_splits` contiguous tap ranges.  dcn_bwd_weight: k_tiles
+    (tap, BWD_WEIGHT_CHANNELS input channels) x n_tiles output-channel
+    tiles of width bn x `splits` contiguous ranges of the m_tiles pixel
+    tiles."""
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    k_tiles: int
+    splits: int
+    data_splits: int
+
+    def split_tiles(self, s: int) -> range:
+        """The pixel tiles of dW split s (the kernel's own formula)."""
+        return range(s * self.m_tiles // self.splits,
+                     (s + 1) * self.m_tiles // self.splits)
+
+    def data_taps(self, s: int) -> range:
+        """The taps of dcn_bwd_data's split s (the kernel's own formula)."""
+        return range(s * 9 // self.data_splits,
+                     (s + 1) * 9 // self.data_splits)
+
+
+def bwd_plan(npix: int, cin: int, cout: int, n_sm: int) -> BwdPlan:
+    """The tiles and splits of dcn_bwd for B*H*W = npix pixels (the same
+    for f32 and bf16, whose blocks differ only inside the kernels).  dW:
+    one split where the (tap, input-, output-channel) tiles fill the card
+    (BWD_WAVES blocks for each of the n_sm SMs); else enough pixel ranges
+    that tiles x splits does, never more than there are pixel tiles; the
+    partial sums are reduced in a fixed order.  dx, d offsets, d masks:
+    the 9 taps cut into ranges where the pixel tiles alone do not fill the
+    card the same way (each (pixel, tap) stays in one block)."""
+    bn = next((b for b in FWD_CHANNEL_TILES if cout <= b),
+              FWD_CHANNEL_TILES[-1])
+    m_tiles = -(-npix // FWD_TILE_PIXELS)
+    n_tiles = -(-cout // bn)
+    k_tiles = 9 * -(-cin // BWD_WEIGHT_CHANNELS)
+    tiles = k_tiles * n_tiles
+    splits = (1 if m_tiles == 0 or tiles == 0 or tiles >= BWD_WAVES * n_sm
+              else min(m_tiles, -(-BWD_WAVES * n_sm // tiles)))
+    data_splits = (1 if m_tiles == 0 or m_tiles >= BWD_WAVES * n_sm
+                   else min(9, -(-BWD_WAVES * n_sm // m_tiles)))
+    return BwdPlan(bn, m_tiles, n_tiles, k_tiles, splits, data_splits)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -404,14 +464,19 @@ def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
     cotangent g (B, H, W, Cout) of `deform_conv2d`; offsets are the raw
     (unclamped) ones.
 
-    On CUDA: gk = W_k @ g for every tap (one f32 matmul,
-    dcn_rowband.py:309, dcn_halo.py:385), then csrc/dcn_bwd.cu recomputes
-    each tap's four bilinear corners at the clamped offsets and emits the
-    samples, d offsets, d masks and dx by f32 atomics; dW and db are
-    matmul / sum over those (dcn_rowband.py:353-355, dcn_halo.py:388-389),
-    and the clamp's pass-through scales the offset gradients: the y
-    components by `clamp_y_keep` (rowband, :458-465), every component by
-    `halo_keep` (halo, dcn_halo.py:442-450)."""
+    On CUDA, csrc/dcn_bwd.cu (`bwd_plan` cuts the work): `dcn_bwd_data`
+    recomputes each tap's four bilinear corners at the clamped offsets,
+    takes gk = g W_k^T (dcn_rowband.py:309, dcn_halo.py:385) on the tensor
+    cores a chunk at a time in shared memory, and emits d offsets, d masks
+    and dx by f32 atomics; `dcn_bwd_weight` takes dW_k = (m S_k)^T g
+    (dcn_rowband.py:353-354, dcn_halo.py:388) on the tensor cores, split
+    over pixel ranges into an f32 workspace that a third kernel adds in a
+    fixed order.  No (npix, 9 Cin) buffer is made and no library GEMM is
+    called.  db = sum g is a reduction here (dcn_rowband.py:355), and the
+    clamp's pass-through scales the offset gradients: the y components by
+    `clamp_y_keep` (rowband, :458-465), every component by `halo_keep`
+    (halo, dcn_halo.py:442-450).  dx is summed by atomics, so its last bits
+    may change from call to call; the other four are bit-equal."""
     mode, r = clamp_mode(max_offset_y, max_offset)
     if x.device.type == "cpu":
         return deform_conv2d_backward_ref(x, offsets, masks, weights, bias,
@@ -422,20 +487,25 @@ def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
     b, h, w, cin = x.shape
     cout = weights.shape[-1]
     npix = b * h * w
-    g2 = g.reshape(npix, cout).float()
-    # (npix, 9*Cin) f32: 302 MB for the 128x256x64 node at batch 4
-    gk = g2 @ weights.reshape(9 * cin, cout).float().T
-    samp = torch.empty((npix, 9 * cin), dtype=torch.float32, device=x.device)
     doff = torch.empty((b, h, w, 18), dtype=torch.float32, device=x.device)
     dmask = torch.empty((b, h, w, 9), dtype=torch.float32, device=x.device)
     dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=x.device)
+    dw = torch.empty_like(weights)
     lib = _load("dcn_bwd")
     with torch.cuda.device(x.device):
+        plan = bwd_plan(npix, cin, cout,
+                        _sm_count(torch.cuda.current_device()))
+        # the pixel splits' f32 partial dW (stream-ordered: its memory is
+        # reused only after the reduce has run)
+        ws = (torch.empty((plan.splits, 9 * cin, cout), dtype=torch.float32,
+                          device=x.device) if plan.splits > 1 else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dcn_bwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
-                          gk.data_ptr(), samp.data_ptr(), doff.data_ptr(),
-                          dmask.data_ptr(), dx.data_ptr(), b, h, w, cin,
-                          _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode], r or 0.0,
+                          weights.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                          doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
+                          None if ws is None else ws.data_ptr(), b, h, w,
+                          cin, cout, _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode],
+                          r or 0.0, plan.data_splits, plan.bn, plan.splits,
                           stream)
     if err != 0:
         raise RuntimeError(f"dcn_bwd launch failed: cudaError {err}")
@@ -444,13 +514,8 @@ def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
         doff[..., 0::2] *= clamp_y_keep(offsets[..., 0::2], r)
     elif mode == "halo":
         doff *= halo_keep(offsets, r)
-    del gk      # stream-ordered: its memory is reused after the kernel
-    # modulated samples in place: dW = (m S)^T g
-    samp.view(npix, 9, cin).mul_(masks.reshape(npix, 9, 1))
-    dw = (samp.T @ g2).reshape(3, 3, cin, cout)
-    db = g2.sum(0)
-    return (dx.to(x.dtype), doff, dmask, dw.to(weights.dtype),
-            db.to(bias.dtype))
+    db = g.reshape(npix, cout).float().sum(0)
+    return dx.to(x.dtype), doff, dmask, dw, db.to(bias.dtype)
 
 
 class _DeformConv2d(torch.autograd.Function):

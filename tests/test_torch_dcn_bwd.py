@@ -326,3 +326,69 @@ def test_dcnv2_layer_grads_match_flax(monkeypatch, mode, env):
     np.testing.assert_allclose(layer.conv_offset_mask.bias.grad.numpy(),
                                np.asarray(jgp["conv_offset_mask"]["bias"]),
                                **TOL)
+
+
+# (H, W, Cin, Cout) of the 16 DLA-34 DCN nodes at 512x1024 input
+NODE_SHAPES = [(16, 32, 512, 256), (32, 64, 256, 256), (32, 64, 256, 128),
+               (64, 128, 128, 128), (64, 128, 128, 64), (32, 64, 256, 64),
+               (128, 256, 64, 64)]
+BWD_PLAN_CASES = ([(b * h * w, cin, cout, 132) for h, w, cin, cout
+                   in NODE_SHAPES for b in (4, 1)]
+                  + [(1, 64, 64, 132), (35, 3, 5, 132), (64, 40, 300, 132),
+                     (117, 3, 5, 7), (2 * 64 * 128, 128, 64, 132),
+                     (70, 40, 70, 1), (0, 64, 64, 132)])
+
+
+@pytest.mark.parametrize("npix,cin,cout,n_sm", BWD_PLAN_CASES)
+def test_bwd_plan_covers_every_pixel_and_tap_once(npix, cin, cout, n_sm):
+    """dW's splits cut the pixel tiles into contiguous, non-empty ranges in
+    order that hold every pixel exactly once; never more splits than
+    64-pixel tiles; one split where the (tap, chunk, channel) tiles fill
+    the card (BWD_WAVES blocks an SM), else tiles x splits does (or every
+    pixel tile is its own split), so it always covers the SMs.
+    dcn_bwd_data's tap ranges hold each tap once."""
+    plan = dcn.bwd_plan(npix, cin, cout, n_sm)
+    assert plan.k_tiles == 9 * -(-cin // dcn.BWD_WEIGHT_CHANNELS)
+    assert plan.n_tiles * plan.bn >= cout and plan.bn >= min(cout, 256)
+    assert plan.m_tiles * dcn.FWD_TILE_PIXELS >= npix
+    assert 1 <= plan.splits <= max(plan.m_tiles, 1)
+    pixels = []
+    for s in range(plan.splits):
+        r = plan.split_tiles(s)
+        assert npix == 0 or len(r) >= 1
+        for tile in r:
+            pixels += range(tile * dcn.FWD_TILE_PIXELS,
+                            min((tile + 1) * dcn.FWD_TILE_PIXELS, npix))
+    assert pixels == list(range(npix))
+    tiles = plan.k_tiles * plan.n_tiles
+    full = dcn.BWD_WAVES * n_sm
+    if npix == 0 or tiles >= full:
+        assert plan.splits == 1
+    else:
+        assert (tiles * plan.splits >= full
+                or plan.splits == plan.m_tiles)
+    assert npix == 0 or tiles * plan.splits >= min(n_sm, tiles * plan.m_tiles)
+    assert 1 <= plan.data_splits <= 9
+    taps = [k for s in range(plan.data_splits) for k in plan.data_taps(s)]
+    assert taps == list(range(9))
+    assert all(len(plan.data_taps(s)) >= 1 for s in range(plan.data_splits))
+
+
+def test_bwd_plan_fills_the_card_at_the_node_shapes():
+    """A train step's nodes (f32, batch 4) at 132 SMs: dW's tiles x splits
+    fill the card BWD_WAVES times and dcn_bwd_data's pixel tiles x tap
+    ranges cover it (as far as 9 tap ranges go); the 16x32 512->256
+    node's 72 dW tiles take 8 pixel ranges, the 128x256 node's 9 take 59;
+    one split where the tiles alone fill the card."""
+    for h, w, cin, cout in NODE_SHAPES:
+        plan = dcn.bwd_plan(4 * h * w, cin, cout, 132)
+        assert (plan.k_tiles * plan.n_tiles * plan.splits
+                >= dcn.BWD_WAVES * 132)
+        assert (plan.m_tiles * plan.data_splits >= dcn.BWD_WAVES * 132
+                or plan.data_splits == 9)
+    assert dcn.bwd_plan(4 * 16 * 32, 512, 256, 132).splits == 8
+    assert dcn.bwd_plan(4 * 16 * 32, 512, 256, 132).data_splits == 9
+    assert dcn.bwd_plan(4 * 128 * 256, 64, 64, 132).data_splits == 1
+    assert dcn.bwd_plan(4 * 128 * 256, 64, 64, 132).splits == 59
+    assert dcn.bwd_plan(4 * 128 * 256, 1024, 1024, 132).splits == 1
+    assert dcn.bwd_plan(64, 40, 300, 132).n_tiles == 2

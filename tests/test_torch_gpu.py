@@ -50,8 +50,12 @@ def _inputs(dev, dtype, b, h, w, c, cout, seed=0, scale=4.0):
 
 
 def _rel(got, ref):
-    return ((got.float() - ref.float()).abs().max()
-            / ref.float().abs().max()).item()
+    """max |got - ref| / max |ref|; 0 where both are all 0."""
+    diff = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if scale > 0:
+        return diff / scale
+    return 0.0 if diff == 0 else float("inf")
 
 
 # ragged shapes: pixel tiles, Cin chunks and Cout tiles that do not divide
@@ -267,6 +271,84 @@ def test_halo_backward_tie_rule(cuda, case):
     assert max(_bwd_rel(got, ref).values()) < 1e-3
     saturated = off.abs() >= 2
     assert bool((got[1][saturated] == 0).all())
+
+
+# the backward's tiles and splits: one pixel, Cout above 256 and not a
+# multiple of 8 (two dW channel tiles and two g slabs, the second ragged),
+# Cin 3 / Cout 5 (one ragged chunk and tile), and a train step's batch of 4
+# in f32 (dW split over 4 pixel ranges)
+BWD_TILE_CASES = [((1, 1, 1, 64, 64), torch.float32),
+                  ((1, 1, 1, 64, 64), torch.bfloat16),
+                  ((1, 8, 8, 40, 300), torch.float32),
+                  ((1, 8, 8, 40, 300), torch.bfloat16),
+                  ((2, 9, 13, 3, 5), torch.float32),
+                  ((2, 9, 13, 3, 5), torch.bfloat16),
+                  ((4, 64, 128, 128, 64), torch.float32)]
+BWD_TOLS = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, 3e-2)}
+
+
+@pytest.mark.parametrize("shape,dtype", BWD_TILE_CASES)
+@pytest.mark.parametrize("mode", sorted(CLAMPS))
+def test_backward_tiles_and_splits_match_plain(cuda, shape, dtype, mode):
+    # offsets of std 0.5 px on one pixel, so some corners land on it
+    args = _inputs(cuda, dtype, *shape,
+                   scale=0.5 if shape[1:3] == (1, 1) else 4.0)
+    g = torch.randn(*shape[:3], shape[4], generator=torch.Generator()
+                    .manual_seed(3)).to(cuda, dtype)
+    before = dict(dcn.launches)
+    got = dcn.deform_conv2d_backward(*args, g, **CLAMPS[mode])
+    torch.cuda.synchronize()
+    after = dict(dcn.launches)
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {f"bwd_{mode}": 1}
+    ref = dcn.deform_conv2d_backward_ref(*args, g, **CLAMPS[mode])
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    tol, tol_off = BWD_TOLS[dtype]
+    rel = _bwd_rel(got, ref)
+    assert rel["doffsets"] < tol_off, rel
+    assert max(v for k, v in rel.items() if k != "doffsets") < tol, rel
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 32, 512, 256),
+                                   (4, 64, 128, 128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_is_deterministic(cuda, shape, dtype):
+    """Two calls give bit-equal d offsets, d masks, dW and db (dW split
+    over pixel ranges and reduced in a fixed order; d offsets and d masks
+    split over tap ranges, each summed by one block); only dx is summed by
+    atomics."""
+    args = _inputs(cuda, dtype, *shape)
+    g = torch.randn(*shape[:3], shape[4], generator=torch.Generator()
+                    .manual_seed(4)).to(cuda, dtype)
+    b, h, w, cin, cout = shape
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = dcn.bwd_plan(b * h * w, cin, cout, n_sm)
+    assert plan.splits > 1 or plan.data_splits > 1
+    first = dcn.deform_conv2d_backward(*args, g, max_offset=4)
+    second = dcn.deform_conv2d_backward(*args, g, max_offset=4)
+    torch.cuda.synchronize()
+    for name, a, b in zip(BWD_NAMES, first, second):
+        if name != "dx":
+            assert torch.equal(a, b), name
+
+
+def test_backward_allocates_no_sample_buffer(cuda):
+    """The backward of the 128x256 64->64 node at batch 4 (f32) raises the
+    peak device memory over its inputs by less than its outputs plus one
+    (npix, 9 Cin) f32 buffer (302 MB): gk and the samples stay on chip."""
+    args = _inputs(cuda, torch.float32, 4, 128, 256, 64, 64)
+    g = torch.randn(4, 128, 256, 64, generator=torch.Generator()
+                    .manual_seed(5)).to(cuda)
+    dcn.deform_conv2d_backward(*args, g)      # build, load, first launch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    grads = dcn.deform_conv2d_backward(*args, g)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - base
+    outputs = sum(t.numel() * t.element_size() for t in grads)
+    assert extra - outputs < 4 * 128 * 256 * 9 * 64 * 4, (extra, outputs)
 
 
 def test_dcnv2_halo_on_card_carries_autograd(cuda):
