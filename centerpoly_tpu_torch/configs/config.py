@@ -174,6 +174,7 @@ class Config:
             self.head_conv = 256 if (
                 "dla" in self.arch or "hourglass" in self.arch) else 64
         self.pad = 127 if "hourglass" in self.arch else 31
+        self.num_stacks = 2 if self.arch == "hourglass" else 1
         if self.dcn_kernel.lower().split(":", 1)[0] not in _DCN_KERNEL_PREFIXES:
             raise ValueError(
                 f"dcn_kernel={self.dcn_kernel!r}: expected auto | off | on | "

@@ -328,5 +328,5 @@ def create_detector(cfg: Config, variables: Mapping | None = None,
     cls = DETECTORS.get(cfg.task)
     if cls is None:
         raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (ROADMAP.md queue A item 9)")
+            f"task {cfg.task!r} is not ported yet (ROADMAP.md queue A, secondary surface)")
     return cls(cfg, variables=variables, device=device)

@@ -80,6 +80,9 @@ def collect(cfg, variables=None, image=None, device=None
     handles = [m.conv_offset_mask.register_forward_hook(hook(name))
                for name, m in det.model.named_modules()
                if isinstance(m, DCNv2)]
+    if not handles:
+        raise ValueError(f"arch {cfg.arch!r} has no DCNv2 node: there are no "
+                         f"offsets to measure")
     try:
         det.model(images)
     finally:
@@ -115,7 +118,11 @@ def main(argv=None) -> list:
     cfg = Config.from_args(argv)
 
     image = read_frame(demo) if demo else None
-    rows = offset_stats(collect(cfg, image=image, device=device), r)
+    try:
+        offsets = collect(cfg, image=image, device=device)
+    except ValueError as e:
+        raise SystemExit(f"analyze_dcn_offsets: {e}") from e
+    rows = offset_stats(offsets, r)
     worst_y = 0.0   # rowband clamps y only
     worst_xy = 0.0  # halo clamps both axes
     for row in rows:

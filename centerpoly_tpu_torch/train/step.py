@@ -18,7 +18,7 @@ def loss_fn_for_task(task: str) -> Callable:
     if task == "polydet":
         return polydet_loss
     raise NotImplementedError(f"no train loss for task '{task}' in the port "
-                              f"yet (ROADMAP.md queue A item 9)")
+                              f"yet (ROADMAP.md queue A, secondary surface)")
 
 
 def to_device(batch: Mapping, device, dtype=torch.float32

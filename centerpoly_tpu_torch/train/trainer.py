@@ -4,7 +4,7 @@ base_trainer.py:64-149): per-epoch train, model_last every epoch,
 periodic val gating model_best, --resume from model_last (+ optimizer).
 
 Validation computes the val loss only (the AP evaluator is not ported,
-ROADMAP.md queue A item 8), so model_best is gated on -val_loss: the JAX
+ROADMAP.md queue A, eval), so model_best is gated on -val_loss: the JAX
 package's own rule when AP is unavailable (trainer.py:291-292).
 """
 from __future__ import annotations

@@ -1,10 +1,13 @@
 """Carry weights into the port.
 
-* `state_dict_from_jax`: the JAX package's DLA-34 variables
+* `state_dict_from_jax`: the JAX package's DLA-34 or hourglass variables
   ({"params", "batch_stats"} as nested dicts of arrays) -> this package's
   state_dict.  It inverts the JAX package's torch-import name map and
   kinds: conv kernels HWIO -> OIHW, the depthwise upsample kernel flipped
   back into a ConvTranspose2d weight, BatchNorm scale/bias/mean/var.
+  For the hourglass archs it walks the port model's own keys through a
+  copy of that name map (`hourglass_name_map`), so a module missing on
+  either side raises.
 * `load_reference_checkpoint`: a reference `.pth` ({'epoch',
   'state_dict', ...}, `module.` prefixes stripped); the model keeps the
   reference's names, so its keys load as they are.
@@ -18,6 +21,9 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from .models.factory import HOURGLASS_STACKS
+from .models.hourglass import HourglassNet
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
@@ -75,22 +81,152 @@ def _torch_key(flax_key: str) -> tuple[str, str]:
     return ".".join(out + [leaf]), "raw"
 
 
+# -- the hourglass name map: torch key -> (flat JAX key, kind), a copy of
+# the JAX package's train/torch_import.py (the reference's exkp /
+# kp_module / residual / convolution names, large_hourglass.py:24-462)
+
+_BN_SUFFIX = {v: k for k, v in _BN_LEAF.items()}
+
+
+def _bn(prefix: str, suffix: str):
+    if suffix == "num_batches_tracked":
+        return None
+    return f"{prefix}/{_BN_SUFFIX[suffix]}", "raw"
+
+
+def _residual_leaf(prefix: str, rest: str):
+    """residual: conv1/bn1/conv2/bn2 (+ skip.0/skip.1) -> the JAX
+    Residual's ConvBN_0/ConvBN_1(/ConvBN_2)."""
+    if m := re.fullmatch(r"conv([12])\.weight", rest):
+        return f"{prefix}/ConvBN_{int(m[1]) - 1}/Conv_0/kernel", "conv"
+    if m := re.fullmatch(r"bn([12])\.(\w+)", rest):
+        return _bn(f"{prefix}/ConvBN_{int(m[1]) - 1}/BatchNorm_0", m[2])
+    if rest == "skip.0.weight":
+        return f"{prefix}/ConvBN_2/Conv_0/kernel", "conv"
+    if m := re.fullmatch(r"skip\.1\.(\w+)", rest):
+        return _bn(f"{prefix}/ConvBN_2/BatchNorm_0", m[1])
+    return None
+
+
+def _convolution_leaf(prefix: str, rest: str):
+    """convolution: conv (+ bias without BN) / bn -> a JAX ConvBN."""
+    if rest == "conv.weight":
+        return f"{prefix}/Conv_0/kernel", "conv"
+    if rest == "conv.bias":
+        return f"{prefix}/Conv_0/bias", "raw"
+    if m := re.fullmatch(r"bn\.(\w+)", rest):
+        return _bn(f"{prefix}/BatchNorm_0", m[1])
+    return None
+
+
+def _kp_path(rest: str, prefix: str):
+    """kp_module: up1/low1/low3 (and the deepest low2) are Sequentials of
+    residuals; a nested low2 is the JAX level's `inner`."""
+    parts = rest.split(".")
+    flax = [prefix]
+    for i, p in enumerate(parts):
+        if p in ("up1", "low1", "low3") or (
+                p == "low2" and i + 1 < len(parts) and parts[i + 1].isdigit()):
+            return _residual_leaf("/".join(flax) + f"/{p}_{parts[i + 1]}",
+                                  ".".join(parts[i + 2:]))
+        if p != "low2":
+            return None
+        flax.append("inner")
+    return None
+
+
+def hourglass_name_map(tk: str):
+    """torch key of the reference's exkp -> (flat JAX key, kind), kind
+    conv (OIHW <-> HWIO) or raw; None for a key with no JAX leaf."""
+    if m := re.fullmatch(r"pre\.0\.(.*)", tk):
+        return _convolution_leaf("pre_conv", m[1])
+    if m := re.fullmatch(r"pre\.1\.(.*)", tk):
+        return _residual_leaf("pre_res", m[1])
+    if m := re.fullmatch(r"kps\.(\d+)\.(.*)", tk):
+        return _kp_path(m[2], f"kp_{m[1]}")
+    if m := re.fullmatch(r"cnvs\.(\d+)\.(.*)", tk):
+        return _convolution_leaf(f"cnv_{m[1]}", m[2])
+    if m := re.fullmatch(r"inters\.(\d+)\.(.*)", tk):
+        return _residual_leaf(f"inter_{m[1]}", m[2])
+    if m := re.fullmatch(r"(inters_|cnvs_)\.(\d+)\.0\.weight", tk):
+        return f"{m[1][:-2]}__{m[2]}/Conv_0/kernel", "conv"
+    if m := re.fullmatch(r"(inters_|cnvs_)\.(\d+)\.1\.(\w+)", tk):
+        return _bn(f"{m[1][:-2]}__{m[2]}/BatchNorm_0", m[3])
+    # heads: a ModuleList over stacks of Sequential(convolution without
+    # BN, 1x1 conv)
+    if m := re.fullmatch(r"(\w+)\.(\d+)\.(0\.conv|1)\.(weight|bias)", tk):
+        part = "conv" if m[3] == "0.conv" else "out"
+        leaf = "kernel" if m[4] == "weight" else "bias"
+        return (f"heads_{m[2]}/{m[1]}_{part}/{leaf}",
+                "conv" if leaf == "kernel" else "raw")
+    return None
+
+
+def _hourglass_model(params: Mapping) -> HourglassNet:
+    """The port's HourglassNet shaped as the JAX variables are (stacks,
+    heads, dims, modules, head width), on the meta device: only its keys
+    and shapes are read."""
+    n_stacks = sum(k.startswith("kp_") for k in params)
+    heads0 = params["heads_0"]
+    heads = {k[:-len("_out")]: int(np.shape(v["kernel"])[-1])
+             for k, v in heads0.items() if k.endswith("_out")}
+    first = next(iter(heads))
+    head_conv = int(np.shape(heads0[f"{first}_conv"]["kernel"])[-1])
+    dims, modules, level = [], [], params["kp_0"]
+
+    def width(block):
+        return int(np.shape(block["ConvBN_0"]["Conv_0"]["kernel"])[-1])
+
+    while True:
+        dims.append(width(level["up1_0"]))
+        modules.append(sum(k.startswith("up1_") for k in level))
+        if "inner" not in level:
+            dims.append(width(level["low2_0"]))
+            modules.append(sum(k.startswith("low2_") for k in level))
+            break
+        level = level["inner"]
+    with torch.device("meta"):
+        return HourglassNet(heads, n_stacks, dims, modules, head_conv)
+
+
+def _to_torch(v, kind: str) -> torch.Tensor:
+    v = np.asarray(v, dtype=np.float32)
+    if kind == "conv":                         # HWIO -> OIHW
+        v = np.transpose(v, (3, 2, 0, 1))
+    elif kind == "deconv_dw":                  # flipped (k,k,1,C) -> (C,1,k,k)
+        v = np.transpose(v[::-1, ::-1, 0, :], (2, 0, 1))[:, None]
+    return torch.from_numpy(np.array(v, order="C"))    # a writable copy
+
+
 def state_dict_from_jax(variables: Mapping, arch: str = "dla_34"
                         ) -> Dict[str, torch.Tensor]:
     """JAX package variables -> this package's state_dict (f32 tensors)."""
-    if arch != "dla_34":
-        raise NotImplementedError(f"arch {arch!r}: only dla_34 is ported")
     flat = _flatten(variables["params"])
     flat.update(_flatten(variables.get("batch_stats", {})))
+    if arch in HOURGLASS_STACKS:
+        model = _hourglass_model(variables["params"])
+        if model.num_stacks != HOURGLASS_STACKS[arch]:
+            raise ValueError(f"the variables hold {model.num_stacks} stacks, "
+                             f"arch {arch!r} has {HOURGLASS_STACKS[arch]}")
+        sd, used = {}, set()
+        for tk in model.state_dict():
+            if tk.endswith("num_batches_tracked"):
+                continue
+            mapped = hourglass_name_map(tk)
+            if mapped is None or mapped[0] not in flat:
+                raise KeyError(f"port key {tk} has no JAX leaf ({mapped})")
+            sd[tk] = _to_torch(flat[mapped[0]], mapped[1])
+            used.add(mapped[0])
+        if used != set(flat):
+            raise KeyError(f"JAX leaves with no port key: "
+                           f"{sorted(set(flat) - used)[:8]}")
+        return sd
+    if arch != "dla_34":
+        raise NotImplementedError(f"arch {arch!r} is not ported")
     sd = {}
     for fk, v in flat.items():
         tk, kind = _torch_key(fk)
-        v = np.asarray(v, dtype=np.float32)
-        if kind == "conv":                     # HWIO -> OIHW
-            v = np.transpose(v, (3, 2, 0, 1))
-        elif kind == "deconv_dw":              # flipped (k,k,1,C) -> (C,1,k,k)
-            v = np.transpose(v[::-1, ::-1, 0, :], (2, 0, 1))[:, None]
-        sd[tk] = torch.from_numpy(np.ascontiguousarray(v))
+        sd[tk] = _to_torch(v, kind)
     return sd
 
 

@@ -10,8 +10,10 @@ input), seeded random weights, through `create_detector(...).run`,
 `run_batch` and `run_stream`; and polydet training at the same width
 through `centerpoly_tpu_torch.main` on a synthetic 2048x1024 fixture
 (batch 4, f32, the paper's v2 loss); each in the DCN modes `off` (exact),
-`rowband:R` and `halo:4`.  Phases (any failure exits non-zero, with no
-result line):
+`rowband:R` and `halo:4`.  Then the same two paths on smallhourglass and
+Hourglass-104 (2 stacks), pure convolution: no DCNv2 node, so no kernel
+of csrc/ runs there.  Phases (any failure exits non-zero, with no result
+line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
   2. build csrc/dcn_fwd.cu and csrc/dcn_bwd.cu with nvcc (sm_90a), one
@@ -60,7 +62,15 @@ result line):
      time of each of its kernels (profiler), and for context v1's two f32
      cuBLAS GEMMs at each node's shape; train step p50, images/s and peak
      memory per mode, the loader's host time, one profiled step in `off`
-     and in halo:4.
+     and in halo:4;
+ 11. smallhourglass inference at full width, bf16 (`phase_hourglass_infer`):
+     `run`, `run_batch` of 4 and `run_stream` on phase 4's frames with 0
+     DCN launches, f32 heads on the card against the CPU, times, the
+     device's busy share of `run`;
+ 12. smallhourglass and Hourglass-104 training through `main` (batch 4,
+     512x1024, f32), 0 DCN launches, the loss falling, a checkpoint round
+     trip and `train_vs_cpu` for smallhourglass, step p50, images/s, peak
+     memory and one profiled step for both (`phase_hourglass_train`).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -96,6 +106,18 @@ PEAK_TF32_FLOPS = 495e12    # H100 SXM dense TF32 (the f32 forward's 3xTF32)
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 FRAME_HW = (1024, 2048)
+# device kernels by kind, from their names: cuDNN / CUTLASS convolutions,
+# BatchNorm (statistics, transform, backward), copies and uploads, Adam's
+# fused multi-tensor kernels
+PROFILE_KINDS = {"convolution": ("implicit_gemm", "fprop", "dgrad", "wgrad",
+                                 "cudnn::cnn", "cutlass"),
+                 "batchnorm": ("batch_norm", "batchnorm", "Welford"),
+                 "copy": ("Memcpy", "direct_copy", "Memset"),
+                 "adam": ("multi_tensor", "Adam", "adam")}
+# conv gain of the random hourglass weights: heads within a few units (at
+# 1.2 the ~100 convolutions of a stack take the logits to ~300, where the
+# heat map's sigmoid is exactly 1 at many peaks)
+HG_GAIN = 0.8
 SOURCES = {"dcn_fwd": "centerpoly_tpu_torch/csrc/dcn_fwd.cu",
            "dcn_bwd": "centerpoly_tpu_torch/csrc/dcn_bwd.cu"}
 REPLACES = {"dcn_fwd[exact]": "centerpoly_tpu/kernels/dcn_pallas.py:44",
@@ -212,13 +234,14 @@ def node_bound_ms(shape) -> tuple[float, str]:
                                        else "bytes")
 
 
-def random_state_dict(model, seed: int):
-    """Seeded random weights, every entry non-degenerate.  The DCN offset
-    convs are scaled to give y-offsets of up to ~20 px (some beyond the
-    rowband:6 band): at the gain of the other convs they reach ~70 px on a
-    2048x1024 frame and the network turns chaotic (f32 on the card then
-    parts from f32 on the CPU by ~0.2 relative), so no comparison across
-    implementations could hold."""
+def random_state_dict(model, seed: int, gain: float = 1.2):
+    """Seeded random weights, every entry non-degenerate; conv kernels at
+    `gain` / sqrt(fan_in).  The DCN offset convs are scaled to give
+    y-offsets of up to ~20 px (some beyond the rowband:6 band): at the gain
+    of the other convs they reach ~70 px on a 2048x1024 frame and the
+    network turns chaotic (f32 on the card then parts from f32 on the CPU
+    by ~0.2 relative), so no comparison across implementations could
+    hold."""
     import torch
     rng = np.random.RandomState(seed)
     sd = {}
@@ -235,8 +258,8 @@ def random_state_dict(model, seed: int):
         elif v.dim() == 1:                                # biases
             a = 0.05 * rng.randn(*shape)
         else:
-            gain = 0.3 if "conv_offset_mask" in k else 1.2
-            a = rng.randn(*shape) * gain / np.sqrt(np.prod(shape[1:]))
+            g = 0.3 if "conv_offset_mask" in k else gain
+            a = rng.randn(*shape) * g / np.sqrt(np.prod(shape[1:]))
         sd[k] = torch.from_numpy(a.astype(np.float32))
     return sd
 
@@ -553,33 +576,42 @@ def phase_times(det, det_halo, frames):
               f"cuDNN convs of the same shapes: {conv_frame:.3f} ms]")
 
     for d, mode in ((det, "rowband:6"), (det_halo, f"halo:{HALO_R}")):
-        tots = []
-        for i in range(12):
-            ret = d.run(frames[i % len(frames)])
-            if i >= 2:
-                tots.append(ret["tot"])
-        p50 = 1e3 * statistics.median(tots)
-        print(f"[e2e] {mode} run: p50 {p50:.2f} ms/frame, mean "
-              f"{1e3 * statistics.mean(tots):.2f} ms, "
-              f"{len(tots) / sum(tots):.2f} frames/s (10 frames, bf16)")
-        d.run_batch(frames)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            d.run_batch(frames)
-        dt = (time.perf_counter() - t0) / 3
-        print(f"[e2e] {mode} run_batch of 4: {1e3 * dt / 4:.2f} ms/frame, "
-              f"{4 / dt:.2f} frames/s")
-        stream = [frames[i % len(frames)] for i in range(12)]
-        for _ in d.run_stream(stream[:2]):
-            pass
-        t0 = time.perf_counter()
-        n = sum(1 for _ in d.run_stream(iter(stream), depth=2))
-        dt = time.perf_counter() - t0
-        print(f"[e2e] {mode} run_stream (depth 2): {1e3 * dt / n:.2f} "
-              f"ms/frame, {n / dt:.2f} frames/s ({n} frames)")
+        e2e_times(d, mode, frames)
     by = "operations" if ops_share >= bound_frame / 2 else "bytes"
     return per_frame, bound_frame, by
+
+
+def e2e_times(d, label, frames):
+    """Host-clock times of a bf16 detector: `run` p50 over 10 frames
+    (after 2), `run_batch` of the 4 frames (3 calls after 1), `run_stream`
+    (depth 2) over 12 frames (after 2)."""
+    import torch
+    tots = []
+    for i in range(12):
+        ret = d.run(frames[i % len(frames)])
+        if i >= 2:
+            tots.append(ret["tot"])
+    p50 = 1e3 * statistics.median(tots)
+    print(f"[e2e] {label} run: p50 {p50:.2f} ms/frame, mean "
+          f"{1e3 * statistics.mean(tots):.2f} ms, "
+          f"{len(tots) / sum(tots):.2f} frames/s ({len(tots)} frames, bf16)")
+    d.run_batch(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        d.run_batch(frames)
+    dt = (time.perf_counter() - t0) / 3
+    print(f"[e2e] {label} run_batch of {len(frames)}: "
+          f"{1e3 * dt / len(frames):.2f} ms/frame, "
+          f"{len(frames) / dt:.2f} frames/s")
+    stream = [frames[i % len(frames)] for i in range(12)]
+    for _ in d.run_stream(stream[:2]):
+        pass
+    t0 = time.perf_counter()
+    n = sum(1 for _ in d.run_stream(iter(stream), depth=2))
+    dt = time.perf_counter() - t0
+    print(f"[e2e] {label} run_stream (depth 2): {1e3 * dt / n:.2f} "
+          f"ms/frame, {n / dt:.2f} frames/s ({n} frames)")
 
 
 def fwd_f32_bound_ms(shape, batch) -> tuple[float, str]:
@@ -631,28 +663,45 @@ def phase_fwd_train_times():
     return per_step, bound_step, by
 
 
+def profile_device(fn):
+    """Run `fn` under torch.profiler (one stream, so kernel times do not
+    overlap): (wall ms, [(device ms, calls, name)] by self device time,
+    largest first; empty when the trace holds no device time).  A
+    `record_function` range (Adam's `Optimizer.step#...`) also appears on
+    the device as a span over the kernels it launched, under its own name;
+    device rows that share a name with a host event are such spans and are
+    left out, or they would count those kernels twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0 and e.key not in host),
+                  reverse=True)
+    return wall_ms, rows
+
+
 def phase_profile(det, det_halo, frames):
     """Device time by kernel over 3 `run` calls (rowband:6), and the
     device's busy share of their wall time (one stream, so kernel times do
     not overlap); then the busy share of `run` and of `run_stream` (depth
     2) over the same 3 frames in halo:4."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     paths = [("run", det, lambda d: [d.run(f) for f in frames[:3]]),
              ("halo:4 run", det_halo, lambda d: [d.run(f) for f in frames[:3]]),
              ("halo:4 run_stream", det_halo,
               lambda d: list(d.run_stream(iter(frames[:3]), depth=2)))]
     for label, d, fn in paths:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn(d)
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.self_device_time_total > 0), reverse=True)
+        wall_ms, rows = profile_device(lambda: fn(d))
         if not rows:
             print("[profile] no device time in the trace: busy share not "
                   "measured")
@@ -792,13 +841,67 @@ def zero_counts():
         dcn.launches[k] = 0
 
 
-def train_argv(root, kernel, input_hw=(512, 1024), epochs=1):
-    return ["polydet", "--dataset", "cityscapes", "--data_dir", root,
-            "--save_dir", os.path.join(root, "exp"), "--exp_id",
-            kernel.replace(":", "_"), "--input_h", str(input_hw[0]),
-            "--input_w", str(input_hw[1]), "--batch_size", str(TRAIN_BATCH),
-            "--num_workers", "0", "--num_epochs", str(epochs),
-            "--val_intervals", "1", "--dcn_kernel", kernel, *TRAIN_FLAGS]
+def exp_id(arch, kernel):
+    return f"{arch}_{kernel.replace(':', '_')}"
+
+
+def train_argv(root, kernel, arch="dla_34", val_intervals=1):
+    """`main`'s arguments for one epoch at 512x1024, batch 4, f32."""
+    return ["polydet", "--dataset", "cityscapes", "--arch", arch,
+            "--data_dir", root, "--save_dir", os.path.join(root, "exp"),
+            "--exp_id", exp_id(arch, kernel), "--input_h", "512",
+            "--input_w", "1024", "--batch_size", str(TRAIN_BATCH),
+            "--num_workers", "0", "--num_epochs", "1", "--val_intervals",
+            str(val_intervals), "--dcn_kernel", kernel, *TRAIN_FLAGS]
+
+
+def check_saved(root, arch, kernel, tags=("last", "best")):
+    from centerpoly_tpu_torch.train import checkpoint
+    save_dir = os.path.join(root, "exp", "cityscapes", "polydet",
+                            exp_id(arch, kernel))
+    for tag in tags:
+        check(os.path.isfile(checkpoint.checkpoint_path(save_dir, tag)),
+              f"no model_{tag}.pth after main ({arch}, {kernel})")
+
+
+def loss_falls(tr, label):
+    """5 updates on one fixed batch lower the loss."""
+    batch = tr.put(next(iter(tr.train_loader)))
+    losses = []
+    for _ in range(6):
+        tr.state, stats = tr.train_step(tr.state, batch)
+        losses.append(float(stats["loss"]))
+    print(f"[train] {label}: loss on one fixed batch over 5 updates: "
+          + " ".join(f"{v:.4f}" for v in losses))
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"loss did not fall on a fixed batch ({label})")
+
+
+def checkpoint_round_trip(tr, root):
+    """Save the trainer's state and load it into a fresh model and Adam:
+    every tensor, the Adam moments and the step come back exactly."""
+    import torch
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.train import checkpoint, state as tstate
+    ckdir = os.path.join(root, "ckpt")
+    os.makedirs(ckdir, exist_ok=True)
+    checkpoint.save_checkpoint(ckdir, "smoke", tr.state, 3)
+    model = create_model(tr.cfg.arch, tr.cfg.heads, tr.cfg.head_conv,
+                         dcn_kernel=tr.cfg.dcn_kernel)
+    fresh = tstate.create_train_state(
+        model.to("cuda", memory_format=torch.channels_last), tr.cfg.lr)
+    fresh, epoch, report = checkpoint.load_checkpoint(ckdir, "smoke", fresh)
+    a, b = tr.state.model.state_dict(), fresh.model.state_dict()
+    oa, ob = tr.state.optimizer.state_dict(), fresh.optimizer.state_dict()
+    check(epoch == 3 and fresh.step == tr.state.step
+          and not report["skipped"] and not report["missing"]
+          and all(torch.equal(a[k], b[k]) for k in a)
+          and all(torch.equal(oa["state"][i][k], ob["state"][i][k])
+                  for i in oa["state"] for k in ("exp_avg", "exp_avg_sq")),
+          f"checkpoint round trip changed the state ({tr.cfg.arch})")
+    print(f"[train] {tr.cfg.arch} checkpoint round trip: {len(a)} tensors, "
+          f"Adam state and step {fresh.step} restored exactly")
+    os.remove(checkpoint.checkpoint_path(ckdir, "smoke"))
 
 
 def phase_train(root):
@@ -810,8 +913,6 @@ def phase_train(root):
     import torch
     from centerpoly_tpu_torch import main as tmain
     from centerpoly_tpu_torch.kernels import dcn
-    from centerpoly_tpu_torch.models import create_model
-    from centerpoly_tpu_torch.train import checkpoint, state as tstate
 
     trainers, launches = {}, {}
     for mode, kernel in TRAIN_MODES.items():
@@ -830,51 +931,28 @@ def phase_train(root):
               f"val batches in {dt:.1f} s; launches {counts}")
         check(steps == 2 and counts == want,
               f"expected 16 forward + 16 backward launches a step, {want}")
-        save_dir = os.path.join(root, "exp", "cityscapes", "polydet",
-                                kernel.replace(":", "_"))
-        for tag in ("last", "best"):
-            check(os.path.isfile(checkpoint.checkpoint_path(save_dir, tag)),
-                  f"no model_{tag}.pth after main")
+        check_saved(root, "dla_34", kernel)
         launches[mode] = counts[f"bwd_{mode}"]
         trainers[mode] = tr
-
-        batch = tr.put(next(iter(tr.train_loader)))
-        losses = []
-        for _ in range(6):
-            tr.state, stats = tr.train_step(tr.state, batch)
-            losses.append(float(stats["loss"]))
-        print(f"[train] {kernel}: loss on one fixed batch over 5 updates: "
-              + " ".join(f"{v:.4f}" for v in losses))
-        check(np.isfinite(losses).all() and losses[-1] < losses[0],
-              f"loss did not fall on a fixed batch ({kernel})")
-
-    tr = trainers["exact"]
-    ckdir = os.path.join(root, "ckpt")
-    os.makedirs(ckdir, exist_ok=True)
-    checkpoint.save_checkpoint(ckdir, "smoke", tr.state, 3)
-    model = create_model(tr.cfg.arch, tr.cfg.heads, tr.cfg.head_conv,
-                         dcn_kernel=tr.cfg.dcn_kernel)
-    fresh = tstate.create_train_state(
-        model.to("cuda", memory_format=torch.channels_last), tr.cfg.lr)
-    fresh, epoch, report = checkpoint.load_checkpoint(ckdir, "smoke", fresh)
-    a, b = tr.state.model.state_dict(), fresh.model.state_dict()
-    oa, ob = tr.state.optimizer.state_dict(), fresh.optimizer.state_dict()
-    check(epoch == 3 and fresh.step == tr.state.step
-          and not report["skipped"] and not report["missing"]
-          and all(torch.equal(a[k], b[k]) for k in a)
-          and all(torch.equal(oa["state"][i][k], ob["state"][i][k])
-                  for i in oa["state"] for k in ("exp_avg", "exp_avg_sq")),
-          "checkpoint round trip changed the state")
-    print(f"[train] checkpoint round trip: {len(a)} tensors, Adam state and "
-          f"step {fresh.step} restored exactly")
+        loss_falls(tr, kernel)
+    checkpoint_round_trip(trainers["exact"], root)
     return trainers, launches
 
 
 def phase_train_vs_cpu(root):
-    """One f32 train step on the card (TF32 off) against the port on the
-    CPU at 128x256, batch 2, from the trainer's seeded init, per mode.
+    """`train_vs_cpu` for DLA-34 in each DCN mode."""
+    for mode, kernel in TRAIN_MODES.items():
+        train_vs_cpu(root, "dla_34", kernel, mode)
 
-    The random DLA-34 in train mode is ill-conditioned: train-mode
+
+def train_vs_cpu(root, arch, kernel, mode):
+    """One f32 train step of `arch` on the card (TF32 off) against the
+    port on the CPU at 128x256, batch 2, from the trainer's seeded init;
+    `mode` is the DCN mode whose backward kernel must run 16 times a step
+    on the card, None for a net with no DCNv2 node (no launch at all).
+
+    A random net in train mode is ill-conditioned (measured on DLA-34 and
+    on tests/test_torch_hourglass.py's narrow 2-stack hourglass): train-mode
     BatchNorm removes each channel's mean from the gradient, so most
     gradients are small remainders of cancelling sums, and f32 on the CPU
     parts from f64 on the CPU by ~5 % (relative L2, median over tensors;
@@ -887,7 +965,11 @@ def phase_train_vs_cpu(root):
         f64 within 4x that of CPU f32 (+1e-3), tensors whose exact gradient
         is 0 (DCN biases before BatchNorm) left out; the parameters after
         Adam within 2 lr (Adam's first step moves a weight by ~lr sign(g));
-        the BatchNorm statistics relative max 1e-3."""
+        each BatchNorm statistic within relative max 1e-3 of the CPU's, or
+        4x the CPU f32's own distance to f64 where that is larger: the
+        deepest hourglass levels normalise over 4-16 values a channel at
+        128x256, batch 2, where f32 on the CPU parts from f64 by more than
+        1e-3 (DLA-34's floor is far below, so its bound stays 1e-3)."""
     import torch
     from centerpoly_tpu_torch.configs import Config
     from centerpoly_tpu_torch.data import (CityscapesMeta,
@@ -904,96 +986,108 @@ def phase_train_vs_cpu(root):
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for mode, kernel in TRAIN_MODES.items():
-        cfg = Config(input_h=128, input_w=256, rep="polar",
-                     poly_loss="l1+iou", poly_order=True, lr=2e-4,
-                     dcn_kernel=kernel)
-        meta = CityscapesMeta(root)
-        sampler = PolydetSampler(cfg, meta, CocoPolyAnnotations(
-            meta.annot_path("train")), img_dir=meta.img_dir("train"))
-        host = next(iter(Loader(sampler, len(sampler), 2, shuffle=False)))
-        loss_cfg = loss_config_for(cfg)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(cfg.seed)
-            sd = create_model(cfg.arch, cfg.heads, cfg.head_conv,
-                              dcn_kernel=kernel).state_dict()
+    cfg = Config(arch=arch, input_h=128, input_w=256, rep="polar",
+                 poly_loss="l1+iou", poly_order=True, lr=2e-4,
+                 dcn_kernel=kernel)
+    meta = CityscapesMeta(root)
+    sampler = PolydetSampler(cfg, meta, CocoPolyAnnotations(
+        meta.annot_path("train")), img_dir=meta.img_dir("train"))
+    host = next(iter(Loader(sampler, len(sampler), 2, shuffle=False)))
+    loss_cfg = loss_config_for(cfg)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        sd = create_model(cfg.arch, cfg.heads, cfg.head_conv,
+                          dcn_kernel=kernel).state_dict()
 
-        def model_on(device, dtype=torch.float32):
-            m = create_model(cfg.arch, cfg.heads, cfg.head_conv,
-                             dcn_kernel=kernel)
-            m.load_state_dict(sd)
-            m.to(device, dtype)
-            if device == "cuda":
-                m.to(memory_format=torch.channels_last)
-            return m
+    def model_on(device, dtype=torch.float32):
+        m = create_model(cfg.arch, cfg.heads, cfg.head_conv,
+                         dcn_kernel=kernel)
+        m.load_state_dict(sd)
+        m.to(device, dtype)
+        if device == "cuda":
+            m.to(memory_format=torch.channels_last)
+        return m
 
-        def grads(model, dtype, train):
-            dev = next(model.parameters()).device
-            batch = {k: v.to(dtype) if v.is_floating_point() else v
-                     for k, v in to_device(host, dev).items()}
-            model.train(train).zero_grad(set_to_none=True)
-            outs = [{k: v.permute(0, 2, 3, 1) for k, v in o.items()}
-                    for o in model(batch["input"])]
-            loss, _ = polydet_loss(outs, batch, loss_cfg)
-            loss.backward()
-            return loss.item(), {n: p.grad.detach().cpu().double()
-                                 for n, p in model.named_parameters()
-                                 if p.grad is not None}
+    def grads(model, dtype, train):
+        dev = next(model.parameters()).device
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in to_device(host, dev).items()}
+        model.train(train).zero_grad(set_to_none=True)
+        outs = [{k: v.permute(0, 2, 3, 1) for k, v in o.items()}
+                for o in model(batch["input"])]
+        loss, _ = polydet_loss(outs, batch, loss_cfg)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu().double()
+                             for n, p in model.named_parameters()
+                             if p.grad is not None}
 
-        zero_counts()
-        l_card, g_card = grads(model_on("cuda"), torch.float32, False)
-        l_cpu, g_cpu = grads(model_on("cpu"), torch.float32, False)
-        check(g_card.keys() == g_cpu.keys(), "gradients of other tensors")
-        worst = max((rel_max(g_card[n], g_cpu[n]), n) for n in g_cpu)
-        print(f"[train-vs-cpu] {kernel} BatchNorm on running statistics: "
-              f"loss rel {abs(l_card - l_cpu) / abs(l_cpu):.2e}, worst "
-              f"gradient rel_max {worst[0]:.2e} ({worst[1]})")
-        check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu) and worst[0] < 2e-3,
-              f"eval-mode gradients on the card disagree ({kernel})")
+    zero_counts()
+    l_card, g_card = grads(model_on("cuda"), torch.float32, False)
+    l_cpu, g_cpu = grads(model_on("cpu"), torch.float32, False)
+    check(g_card.keys() == g_cpu.keys(), "gradients of other tensors")
+    worst = max((rel_max(g_card[n], g_cpu[n]), n) for n in g_cpu)
+    print(f"[train-vs-cpu] {arch} {kernel} BatchNorm on running statistics: "
+          f"loss rel {abs(l_card - l_cpu) / abs(l_cpu):.2e}, worst "
+          f"gradient rel_max {worst[0]:.2e} ({worst[1]})")
+    check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu) and worst[0] < 2e-3,
+          f"eval-mode gradients on the card disagree ({kernel})")
 
-        l64, g64 = grads(model_on("cpu", torch.float64), torch.float64, True)
-        steps = {}
-        for dev in ("cuda", "cpu"):
-            st = tstate.create_train_state(model_on(dev), base_lr=cfg.lr)
-            st, stats = make_train_step(loss_cfg)(st, to_device(host, dev))
-            steps[dev] = (stats["loss"].item(),
-                          {n: p.grad.detach().cpu().double()
-                           for n, p in st.model.named_parameters()
-                           if p.grad is not None},
-                          {n: p.detach().cpu() for n, p in
-                           st.model.named_parameters()},
-                          {n: b.detach().cpu() for n, b in
-                           st.model.named_buffers()
-                           if n.endswith(("running_mean", "running_var"))})
-        counts = {k: v for k, v in dcn.launches.items() if v}
-        (lc, gc, pc, bc), (lp, gp, pp, bp) = steps["cuda"], steps["cpu"]
-        check(gc.keys() == gp.keys() == g64.keys(),
-              "gradients of other tensors")
-        norm = {n: g.norm().item() for n, g in g64.items()}
-        top = max(norm.values())
-        ratios, skipped = [], 0
-        for n, ref in g64.items():
-            if norm[n] < 1e-6 * top:
-                skipped += 1
-                continue
-            e_card = (gc[n] - ref).norm().item() / norm[n]
-            e_cpu = (gp[n] - ref).norm().item() / norm[n]
-            ratios.append((e_card - 4 * e_cpu - 1e-3, e_card, e_cpu, n))
-        bad = max(ratios)
-        worst = max(ratios, key=lambda t: t[1])
-        dp = max(((pc[n] - pp[n]).abs().max().item(), n) for n in pp)
-        db = max((rel_max(bc[n], bp[n]), n) for n in bp)
-        print(f"[train-vs-cpu] {kernel} train step: loss card {lc:.6f} cpu "
-              f"{lp:.6f} f64 {l64:.6f} (rel {abs(lc - lp) / abs(lp):.2e}); "
-              f"gradients rel L2 to f64: largest card {worst[1]:.2e} (cpu "
-              f"f32 {worst[2]:.2e}, {worst[3]}), closest to its limit card "
-              f"{bad[1]:.2e} against cpu f32 {bad[2]:.2e} ({bad[3]}), "
-              f"{skipped} exact zeros left "
-              f"out; params after Adam max |diff| {dp[0]:.2e} ({dp[1]}); "
-              f"BatchNorm stats rel_max {db[0]:.2e}; launches {counts}")
-        check(abs(lc - lp) <= 1e-4 * abs(lp) and bad[0] <= 0
-              and dp[0] <= 2 * cfg.lr + 1e-6 and db[0] < 1e-3,
-              f"train step on the card disagrees with the CPU ({kernel})")
+    m64 = model_on("cpu", torch.float64)
+    l64, g64 = grads(m64, torch.float64, True)
+    b64 = {n: b.detach() for n, b in m64.named_buffers()
+           if n.endswith(("running_mean", "running_var"))}
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        st = tstate.create_train_state(model_on(dev), base_lr=cfg.lr)
+        st, stats = make_train_step(loss_cfg)(st, to_device(host, dev))
+        steps[dev] = (stats["loss"].item(),
+                      {n: p.grad.detach().cpu().double()
+                       for n, p in st.model.named_parameters()
+                       if p.grad is not None},
+                      {n: p.detach().cpu() for n, p in
+                       st.model.named_parameters()},
+                      {n: b.detach().cpu() for n, b in
+                       st.model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))})
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    (lc, gc, pc, bc), (lp, gp, pp, bp) = steps["cuda"], steps["cpu"]
+    check(gc.keys() == gp.keys() == g64.keys(),
+          "gradients of other tensors")
+    norm = {n: g.norm().item() for n, g in g64.items()}
+    top = max(norm.values())
+    ratios, skipped = [], 0
+    for n, ref in g64.items():
+        if norm[n] < 1e-6 * top:
+            skipped += 1
+            continue
+        e_card = (gc[n] - ref).norm().item() / norm[n]
+        e_cpu = (gp[n] - ref).norm().item() / norm[n]
+        ratios.append((e_card - 4 * e_cpu - 1e-3, e_card, e_cpu, n))
+    bad = max(ratios)
+    worst = max(ratios, key=lambda t: t[1])
+    dp = max(((pc[n] - pp[n]).abs().max().item(), n) for n in pp)
+    bn = []
+    for n in bp:
+        e_card, e_cpu = rel_max(bc[n], bp[n]), rel_max(bp[n], b64[n])
+        bn.append((e_card - max(1e-3, 4 * e_cpu), e_card, e_cpu, n))
+    db = max(bn)
+    print(f"[train-vs-cpu] {arch} {kernel} train step: loss card {lc:.6f} cpu "
+          f"{lp:.6f} f64 {l64:.6f} (rel {abs(lc - lp) / abs(lp):.2e}); "
+          f"gradients rel L2 to f64: largest card {worst[1]:.2e} (cpu "
+          f"f32 {worst[2]:.2e}, {worst[3]}), closest to its limit card "
+          f"{bad[1]:.2e} against cpu f32 {bad[2]:.2e} ({bad[3]}), "
+          f"{skipped} exact zeros left "
+          f"out; params after Adam max |diff| {dp[0]:.2e} ({dp[1]}); "
+          f"BatchNorm stats rel_max card vs cpu: largest "
+          f"{max(b[1] for b in bn):.2e}, closest to its limit {db[1]:.2e} "
+          f"(cpu f32 vs f64 {db[2]:.2e}, {db[3]}); cpu f32 vs f64 largest "
+          f"{max(b[2] for b in bn):.2e}; launches {counts}")
+    check(abs(lc - lp) <= 1e-4 * abs(lp) and bad[0] <= 0
+          and dp[0] <= 2 * cfg.lr + 1e-6 and db[0] <= 0,
+          f"train step on the card disagrees with the CPU ({kernel})")
+    if mode is None:
+        check(not counts, f"DCN launches on a net with no DCNv2 node: {counts}")
+    else:
         check(counts.get(f"bwd_{mode}", 0) == 32, f"card runs did not "
               f"launch the backward kernel 16 times each: {counts}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
@@ -1186,37 +1280,43 @@ def phase_bwd_times(check_plain: bool = True):
     return per_step, bound_step, by, f32_bound_step, errs
 
 
+def step_times(tr, label):
+    """Train step p50 and images/s over 8 steps on one device-resident
+    batch (after 2), and the peak device memory of those steps."""
+    import torch
+    batch = tr.put(next(iter(tr.train_loader)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        tr.state, _ = tr.train_step(tr.state, batch)
+    times = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.state, _ = tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    p50 = statistics.median(times)
+    print(f"[train-time] {label}: step p50 {1e3 * p50:.2f} ms, "
+          f"min {1e3 * min(times):.2f} ms, {TRAIN_BATCH / p50:.2f} images/s "
+          f"(batch {TRAIN_BATCH}, {tr.cfg.input_h}x{tr.cfg.input_w}, f32, "
+          f"8 steps); peak memory of its steps "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def phase_train_times(trainers):
     """Train step p50, images/s and peak memory per mode (f32, batch 4: the
     training default); the loader's host time per batch; one profiled step
     in `off` and in halo:4."""
     import torch
     from centerpoly_tpu_torch.data import stack_batch
-    from torch.profiler import ProfilerActivity, profile
 
     # the library defaults a training run gets: f32 matmuls in full f32,
     # cuDNN convolutions in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     for mode, tr in trainers.items():
-        batch = tr.put(next(iter(tr.train_loader)))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):
-            tr.state, _ = tr.train_step(tr.state, batch)
-        times = []
-        for _ in range(8):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.state, _ = tr.train_step(tr.state, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        p50 = statistics.median(times)
-        print(f"[train-time] {tr.cfg.dcn_kernel}: step p50 {1e3 * p50:.2f} ms, "
-              f"min {1e3 * min(times):.2f} ms, {TRAIN_BATCH / p50:.2f} images/s "
-              f"(batch {TRAIN_BATCH}, {tr.cfg.input_h}x{tr.cfg.input_w}, f32, "
-              f"8 steps); peak memory of its steps "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        step_times(tr, tr.cfg.dcn_kernel)
     sampler = trainers["exact"].train_loader.sampler
     host = []
     for k in range(3):
@@ -1231,17 +1331,10 @@ def phase_train_times(trainers):
     for mode in ("exact", "halo"):
         tr = trainers[mode]
         batch = tr.put(next(iter(tr.train_loader)))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+
+        def step():
             tr.state, _ = tr.train_step(tr.state, batch)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.self_device_time_total > 0), reverse=True)
+        wall_ms, rows = profile_device(step)
         if not rows:
             print("[train-profile] no device time in the trace: busy share "
                   "not measured")
@@ -1256,6 +1349,199 @@ def phase_train_times(trainers):
               f"({100 * (fwd + bwd) / busy:.1f} % of device time)")
         for ms, n, key in rows[:15 if mode == "exact" else 6]:
             print(f"[train-profile] {ms:8.3f} ms {n:4d} calls  {key[:90]}")
+
+
+def count_free(fn, label):
+    """Run one path of a net with no DCNv2 node with the launch counts
+    zeroed just before and read just after: every count must read 0."""
+    from centerpoly_tpu_torch.kernels import dcn
+    zero_counts()
+    out = fn()
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    check(not counts, f"{label}: DCN launches {counts} on a net with no "
+          f"DCNv2 node")
+    return out
+
+
+def conv_tflop(arch, heads, hw) -> float:
+    """TFLOP of convolution in one forward of `arch` on one (h, w) image,
+    counted from the shapes (2 x output elements x Cin / groups x kh x
+    kw, each conv), on the meta device."""
+    import torch
+    from centerpoly_tpu_torch.models import create_model
+    total = []
+
+    def count(mod, inp, out):
+        total.append(2 * out.numel() * mod.in_channels // mod.groups
+                     * mod.kernel_size[0] * mod.kernel_size[1])
+    with torch.device("meta"):
+        model = create_model(arch, heads, 256)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.register_forward_hook(count)
+        model(torch.empty(1, 3, *hw))
+    return sum(total) / 1e12
+
+
+def print_profile(label, wall_ms, rows, per=1):
+    """Print the device's busy share of a profiled window, its device
+    time by kind and its 10 largest device operations (per call of the
+    window's `per` repeats); return {kind: device ms a call}."""
+    if not rows:
+        print(f"[{label}] no device time in the trace: busy share not "
+              f"measured")
+        return {}
+    busy = sum(r[0] for r in rows)
+    kinds = collections.Counter()
+    for ms, _, key in rows:
+        kinds[next((kind for kind, words in PROFILE_KINDS.items()
+                    if any(w in key for w in words)), "other")] += ms
+    print(f"[{label}] wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f} %): " + ", ".join(
+              f"{kind} {ms / per:.3f} ms" for kind, ms in kinds.most_common())
+          + (" a call" if per > 1 else ""))
+    for ms, n, key in rows[:10]:
+        print(f"[{label}] {ms / per:8.3f} ms  {n // per:4d} calls  "
+              f"{key[:90]}")
+    return {kind: ms / per for kind, ms in kinds.items()}
+
+
+def phase_hourglass_infer(frames):
+    """Phase 11: smallhourglass polydet inference at full width (8
+    classes, 16 vertices, heads 256 wide, 512x1024 input for 2048x1024
+    frames), bf16, seeded random weights at conv gain `HG_GAIN`: `run` on
+    each seeded frame of phase 4, `run_batch` of 4 and `run_stream` (depth
+    2), each with the DCN launch counts zeroed just before and read just
+    after (0: the net has no DCNv2 node); `run_stream` equal to `run` frame
+    by frame (cuDNN on its deterministic algorithms for both); the f32
+    heads on the card (TF32 off) against the port on the CPU; times; the
+    device's busy share of `run` and its top device operations."""
+    import torch
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.models import create_model
+
+    cfg = Config(arch="smallhourglass")
+    check(not cfg.prefer_fast_inference_dcn() and cfg.num_stacks == 1
+          and (cfg.input_h, cfg.input_w, cfg.head_conv) == (512, 1024, 256),
+          f"smallhourglass config {cfg.input_h}x{cfg.input_w} "
+          f"head_conv {cfg.head_conv}")
+    sd = random_state_dict(create_model(cfg.arch, cfg.heads, cfg.head_conv),
+                           SEED, gain=HG_GAIN)
+    det = create_detector(cfg, sd)
+    check(det.device.type == "cuda" and det.dtype == torch.bfloat16,
+          f"detector on {det.device} in {det.dtype}")
+    n_params = sum(p.numel() for p in det.model.parameters())
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for i, frame in enumerate(frames):
+        ret = count_free(lambda: det.run(frame), "smallhourglass run")
+        runs.append(ret["results"])
+        rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
+        check(rows.shape == (cfg.K, 4 + 1 + 2 * cfg.nbr_points + 1)
+              and np.isfinite(rows).all(), f"hourglass frame {i} results")
+    batch = count_free(lambda: det.run_batch(frames), "run_batch")
+    check(len(batch) == len(frames) and all(
+        sum(len(v) for v in b["results"].values()) == cfg.K for b in batch),
+        "run_batch results")
+    streamed = count_free(lambda: list(det.run_stream(iter(frames), depth=2)),
+                          "run_stream")
+    torch.backends.cudnn.deterministic = flags
+    check(len(streamed) == len(frames) and all(
+        np.array_equal(np.asarray(got[j]), np.asarray(ref[j]))
+        for got, ref in zip(streamed, runs) for j in ref),
+        "run_stream differs from run()")
+    print(f"[hourglass] smallhourglass ({n_params} parameters, bf16): run "
+          f"on {len(frames)} frames, run_batch of {len(frames)}, run_stream "
+          f"(depth 2) equal to run(); 0 DCN launches in each; results "
+          f"finite, {cfg.K} rows")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = Config(arch="smallhourglass", mixed_precision=False)
+    det32 = create_detector(cfg32, sd)
+    det_cpu = create_detector(cfg32, sd, device="cpu")
+    trans, meta = det._scaled_trans(*FRAME_HW, 1.0)
+    with torch.no_grad():
+        x_cpu = det_cpu._pre_device(torch.from_numpy(frames[0])[None], trans,
+                                    (meta["inp_h"], meta["inp_w"]))
+        ref = det_cpu._heads(x_cpu)
+        got32 = det32._heads(x_cpu.to("cuda",
+                                      memory_format=torch.channels_last))
+        got16 = det._heads(x_cpu.to("cuda", torch.bfloat16,
+                                    memory_format=torch.channels_last))
+    print("[hourglass] max |head| (CPU f32): " + " ".join(
+        f"{k} {v.abs().max().item():.2f}" for k, v in ref.items()))
+    check_heads("hourglass", ref, got32, got16)
+    del det32, det_cpu, got32
+
+    e2e_times(det, "smallhourglass", frames)
+    wall_ms, rows = profile_device(lambda: [det.run(f) for f in frames[:3]])
+    kinds = print_profile("hourglass-profile run, 3 frames", wall_ms, rows, 3)
+    tflop = conv_tflop(cfg.arch, cfg.heads, (cfg.input_h, cfg.input_w))
+    if kinds.get("convolution"):
+        rate = tflop / kinds["convolution"] * 1e15    # FLOP/s
+        print(f"[hourglass] {tflop:.4f} TFLOP of convolution a frame "
+              f"(counted from shapes) in {kinds['convolution']:.3f} ms: "
+              f"{rate / 1e12:.1f} TFLOP/s ({100 * rate / PEAK_BF16_FLOPS:.1f}"
+              f" % of the bf16 peak)")
+    return det
+
+
+def phase_hourglass_train(root):
+    """Phase 12: smallhourglass then Hourglass-104 (2 stacks) training
+    through `main` at 512x1024, batch 4, f32, the paper's v2 loss, on the
+    phase 9 fixture, each with the DCN launch counts zeroed just before and
+    read just after (0); smallhourglass: one epoch of 2 steps and a val
+    pass, the loss falling on one fixed batch, a checkpoint round trip and
+    `train_vs_cpu`; Hourglass-104: one epoch of 2 steps (no val: its
+    checkpoint with Adam's moments is 2.3 GB); then for both the step p50,
+    images/s, peak device memory and one profiled step."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+
+    for arch, stacks, val in (("smallhourglass", 1, 1), ("hourglass", 2, 0)):
+        t0 = time.perf_counter()
+        tr = count_free(lambda: tmain.main(train_argv(root, "off", arch, val)),
+                        f"main --arch {arch}")
+        dt = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in tr.state.model.parameters())
+        print(f"[hourglass-train] main --arch {arch}: {tr.state.step} steps "
+              f"of batch {TRAIN_BATCH} at {tr.cfg.input_h}x{tr.cfg.input_w} "
+              f"in {dt:.1f} s (val every {val} epoch); {n_params} parameters, "
+              f"{tr.cfg.num_stacks} stack(s); 0 DCN launches")
+        check(tr.state.step == 2 and tr.cfg.num_stacks == stacks
+              and tr.state.model.num_stacks == stacks,
+              f"main --arch {arch}: {tr.state.step} steps")
+        check_saved(root, arch, "off", ("last", "best") if val else ("last",))
+        if arch == "smallhourglass":
+            count_free(lambda: loss_falls(tr, arch), "fixed-batch steps")
+            checkpoint_round_trip(tr, root)
+        # the library defaults a training run gets (as phase 10)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        step_times(tr, arch)
+        batch = tr.put(next(iter(tr.train_loader)))
+
+        def step():
+            tr.state, _ = tr.train_step(tr.state, batch)
+        wall_ms, rows = profile_device(step)
+        kinds = print_profile(f"hourglass-profile {arch} step", wall_ms, rows)
+        # a step's convolutions: the forward, its data gradient and its
+        # weight gradient, each about the forward's operations
+        tflop = 3 * TRAIN_BATCH * conv_tflop(arch, tr.cfg.heads, (512, 1024))
+        if kinds.get("convolution"):
+            rate = tflop / kinds["convolution"] * 1e15    # FLOP/s
+            print(f"[hourglass-train] {arch}: ~{tflop:.3f} TFLOP of "
+                  f"convolution a step (3 x forward x batch, counted from "
+                  f"shapes) in {kinds['convolution']:.3f} ms: "
+                  f"{rate / 1e12:.1f} TFLOP/s "
+                  f"({100 * rate / PEAK_TF32_FLOPS:.1f} % of the TF32 peak)")
+        del tr, batch
+        torch.cuda.empty_cache()
+        if arch == "smallhourglass":
+            train_vs_cpu(root, arch, "off", None)
 
 
 def main() -> int:
@@ -1299,6 +1585,9 @@ def main() -> int:
             phase_bwd_times())
         phase_train_times(trainers)
         phase_loader_workers(root)
+        del trainers
+        phase_hourglass_infer(frames)
+        phase_hourglass_train(root)
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],

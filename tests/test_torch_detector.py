@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_common import HEADS, jax_dla_variables
+from torch_port_common import HEADS, jax_dla_variables, rel_max
 
 from centerpoly_tpu.configs import Config as JaxConfig
 from centerpoly_tpu.infer import detector as jdet
@@ -56,6 +56,22 @@ def _frame(seed=11):
                                                dtype=np.uint8)
 
 
+def _same_detections(got, ref) -> int:
+    """Per class the same rows: scores and depth within 1e-3, coordinates
+    within 1e-2 px.  Returns the number of rows."""
+    n = 0
+    for j in range(1, 9):
+        g, r = np.asarray(got[j]), np.asarray(ref[j])
+        assert g.shape == r.shape, j
+        n += len(r)
+        np.testing.assert_allclose(g[:, 4], r[:, 4], rtol=0, atol=1e-3)
+        coords = [i for i in range(g.shape[1]) if i != 4 and i != g.shape[1] - 1]
+        np.testing.assert_allclose(g[:, coords], r[:, coords], rtol=0,
+                                   atol=1e-2)
+        np.testing.assert_allclose(g[:, -1], r[:, -1], rtol=0, atol=1e-3)
+    return n
+
+
 @pytest.mark.parametrize("mode", ["rowband:6", "off", "halo:4"])
 def test_run_matches_jax(jax_env, request, mode):
     """In halo mode the JAX detector runs its clipped XLA fallback on the
@@ -69,18 +85,7 @@ def test_run_matches_jax(jax_env, request, mode):
                            device="cpu")
     got = port.run(frame)
     assert set(got) == set(ref)
-    n = 0
-    for j in range(1, 9):
-        g = np.asarray(got["results"][j])
-        r = np.asarray(ref["results"][j])
-        assert g.shape == r.shape, j
-        n += len(r)
-        np.testing.assert_allclose(g[:, 4], r[:, 4], rtol=0, atol=1e-3)
-        coords = [i for i in range(g.shape[1]) if i != 4 and i != g.shape[1] - 1]
-        np.testing.assert_allclose(g[:, coords], r[:, coords], rtol=0,
-                                   atol=1e-2)
-        np.testing.assert_allclose(g[:, -1], r[:, -1], rtol=0, atol=1e-3)
-    assert n == 16
+    assert _same_detections(got["results"], ref["results"]) == 16
     # the batch path gives the same detections as run(), within the same
     # bounds (a batch of 2 sums its convolutions in another order)
     batch = port.run_batch([frame, _frame(12)])
@@ -158,6 +163,58 @@ def test_flip_and_multiscale_run(variables):
     ret = create_detector(cfg, variables, device="cpu").run(_frame())
     rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
     assert rows.shape == (16, 4 + 1 + 32 + 1) and np.isfinite(rows).all()
+
+
+@pytest.mark.parametrize("extra", [
+    {"flip_test": True}, {"test_scales": (1.0, 0.5)}, {"nms": True},
+    {"flip_test": True, "test_scales": (1.0, 0.5), "nms": True}],
+    ids=["flip_test", "two_scales", "nms", "all_three"])
+def test_detector_paths_match_jax(jax_env, variables, extra):
+    """The flip-TTA average, two test scales merged by soft-NMS, and
+    soft-NMS at one scale, against the JAX detector, within
+    test_run_matches_jax's bounds."""
+    frame = _frame()
+    ref = jdet.create_detector(JaxConfig(**extra, **KW), variables).run(frame)
+    got = create_detector(Config(**extra, **KW), variables,
+                          device="cpu").run(frame)
+    assert _same_detections(got["results"], ref["results"]) == 16
+
+
+@pytest.mark.parametrize("hw", [(100, 200), (60, 120)])
+def test_keep_res_matches_jax(jax_env, halo_variables, hw):
+    """fix_res=False: the network input is the frame padded to
+    (h | 31) + 1, (w | 31) + 1 (128x224 for a 100x200 frame; 64x128 for
+    60x120, with a pad border).  The halo fixture's weights (offset gain
+    0.3): at gain 1 the random net at 128x224 differs from itself by ~1e-3
+    relative in the head maps when its input moves by 1e-6 relative, and
+    one detection changes class at the K-th score.  The metas and network
+    inputs must be equal, every head map within 2e-3 relative max
+    (tests/test_torch_dla.py's bound), the detections within
+    test_run_matches_jax's bounds."""
+    frame = np.random.RandomState(13).randint(0, 256, (*hw, 3),
+                                              dtype=np.uint8)
+    cfg = dict(KW, fix_res=False)
+    jd = jdet.create_detector(JaxConfig(**cfg), halo_variables)
+    pd = create_detector(Config(**cfg), halo_variables, device="cpu")
+    jtrans, jmeta = jd.pre_process_meta(*hw, 1.0)
+    trans, meta = pd.pre_process_meta(*hw, 1.0)
+    assert {k: np.asarray(v).tolist() for k, v in meta.items()} == {
+        k: np.asarray(v).tolist() for k, v in jmeta.items()}
+    assert (meta["inp_h"], meta["inp_w"]) == ((hw[0] | 31) + 1,
+                                              (hw[1] | 31) + 1)
+    np.testing.assert_allclose(trans, jtrans, rtol=1e-6, atol=1e-6)
+    size = (meta["inp_h"], meta["inp_w"])
+    jx = jd._pre_jit(frame, jtrans, jd.mean, jd.std, size)
+    x = pd._pre_device(torch.from_numpy(frame)[None], trans, size)
+    np.testing.assert_allclose(x.permute(0, 2, 3, 1).numpy(), np.asarray(jx),
+                               rtol=0, atol=1e-4)
+    ref_heads = jd._heads(jd.variables, jx)
+    with torch.no_grad():
+        heads = pd._heads(x)
+    for k, r in ref_heads.items():
+        assert rel_max(heads[k].permute(0, 2, 3, 1).numpy(), r) < 2e-3, k
+    assert _same_detections(pd.run(frame)["results"],
+                            jd.run(frame)["results"]) == 16
 
 
 def test_demo_on_a_folder(tmp_path, capsys):

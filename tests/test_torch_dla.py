@@ -136,4 +136,4 @@ def test_load_reference_checkpoint(tmp_path):
 
 def test_other_archs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("smallhourglass", HEADS, 256)
+        create_model("res_18", HEADS, 64)

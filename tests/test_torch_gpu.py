@@ -403,3 +403,22 @@ def test_f32_model_on_card_matches_cpu(cuda):
         got = model(x.to(cuda, memory_format=torch.channels_last))[-1]
     for k in heads:
         assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
+
+
+def test_smallhourglass_f32_on_card_matches_cpu(cuda):
+    """smallhourglass at full width, f32 (TF32 off): every head on the card
+    within 2e-3 relative max of the port on the CPU, and no DCN launch."""
+    from centerpoly_tpu_torch.models import create_model
+    heads = {"hm": 8, "poly": 32, "pseudo_depth": 1, "reg": 2}
+    torch.manual_seed(0)
+    model = create_model("smallhourglass", heads, 256).eval()
+    x = torch.randn(1, 3, 128, 256)
+    before = dict(dcn.launches)
+    with torch.no_grad():
+        ref = model(x)[-1]
+        model.to(cuda, memory_format=torch.channels_last)
+        got = model(x.to(cuda, memory_format=torch.channels_last))[-1]
+    torch.cuda.synchronize()
+    assert dcn.launches == before
+    for k in heads:
+        assert _rel(got[k].cpu(), ref[k]) < 2e-3, k

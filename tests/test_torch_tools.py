@@ -86,3 +86,29 @@ def test_main_on_a_npy_frame(tmp_path, capsys):
     # a fresh init's offset convs are zero: no offset is clamped
     assert summary["lossless_halo"] and summary["lossless_rowband"]
     assert summary["worst_node_frac_xy"] == 0.0
+
+
+def test_main_on_an_arch_without_dcn(tmp_path):
+    """smallhourglass has no DCNv2 node: the tool exits with a message
+    that says so, and prints no (empty) table."""
+    with pytest.raises(SystemExit, match="no DCNv2 node"):
+        tool.main(["polydet", "--arch", "smallhourglass", "--device", "cpu",
+                   "--input_h", "128", "--input_w", "256"])
+
+
+def test_remap_extremenet_keys_matches_jax():
+    """The ExtremeNet -> CenterNet key remap equals the JAX package's on a
+    key set with every head key, `ct_heats` beside `t_heats`, and keys the
+    remap leaves alone."""
+    from centerpoly_tpu.tools.hourglass_weights import (
+        remap_extremenet_keys as jremap)
+    from centerpoly_tpu_torch.tools.hourglass_weights import (
+        KEY_MAP, remap_extremenet_keys)
+    keys = [f"module.{k}.{s}.1.weight" for k in KEY_MAP for s in (0, 1)]
+    keys += ["module.kps.0.low2.low2.up1.0.conv1.weight", "module.pre.0.conv"
+             ".weight", "ct_heats.0.0.conv.bias", "t_heats.1.1.bias"]
+    sd = {k: i for i, k in enumerate(keys)}
+    got = remap_extremenet_keys(sd)
+    assert got == jremap(sd)
+    assert got["hm_c.0.0.conv.bias"] == sd["ct_heats.0.0.conv.bias"]
+    assert got["hm_t.1.1.bias"] == sd["t_heats.1.1.bias"]

@@ -21,10 +21,12 @@ def rel_max(got, ref) -> float:
     return float(np.abs(np.asarray(got, np.float64) - ref).max() / scale)
 
 
-def randomize_variables(shapes, seed: int, offset_gain: float = 1.0):
+def randomize_variables(shapes, seed: int, offset_gain: float = 1.0,
+                        gain: float = 1.2):
     """Random numpy arrays for a tree of JAX shapes (from jax.eval_shape of
     a flax init).  `offset_gain` scales the DCN offset/mask convs: at 1.0
-    their offsets come out a few pixels wide."""
+    their offsets come out a few pixels wide; `gain` scales every other
+    conv kernel (times 1 / sqrt(fan_in))."""
     rng = np.random.RandomState(seed)
 
     def leaf(path, s):
@@ -39,8 +41,8 @@ def randomize_variables(shapes, seed: int, offset_gain: float = 1.0):
         if name.endswith("bias"):
             return (0.05 * rng.randn(*shape)).astype(np.float32)
         fan_in = int(np.prod(shape[:-1])) or 1
-        gain = offset_gain if "conv_offset_mask" in name else 1.2
-        return (rng.randn(*shape) * gain / np.sqrt(fan_in)).astype(np.float32)
+        g = offset_gain if "conv_offset_mask" in name else gain
+        return (rng.randn(*shape) * g / np.sqrt(fan_in)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
@@ -55,6 +57,20 @@ def jax_dla_variables(heads, head_conv: int, h: int, w: int, seed: int,
         lambda: model.init(jax.random.PRNGKey(0),
                            jnp.zeros((1, h, w, 3)), train=False))
     return model, randomize_variables(shapes, seed, offset_gain)
+
+
+def jax_hourglass_variables(heads, h: int, w: int, seed: int,
+                            num_stacks: int = 1, gain: float = 1.2, **kw):
+    """(flax HourglassNet, random variables) for an (h, w) input, from
+    jax.eval_shape (a real init of Hourglass-104 takes ~25 s on one CPU
+    core).  `kw`: the module's dims, modules and head_conv."""
+    from centerpoly_tpu.models.hourglass import HourglassNet
+
+    model = HourglassNet(heads=heads, num_stacks=num_stacks, **kw)
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, h, w, 3)), train=False))
+    return model, randomize_variables(shapes, seed, gain=gain)
 
 
 def port_model(variables, heads, head_conv: int, dcn_kernel: str = "auto"):
