@@ -1,8 +1,8 @@
 """Typed experiment configuration.
 
 The port's own copy of the JAX package's `Config` (itself the reference's
-argparse `opts`, src/lib/opts.py:9-459), cut to the fields the inference
-and polydet training slices read.  The DCN mode travels to the model as
+argparse `opts`, src/lib/opts.py:9-459), cut to the fields the inference,
+polydet training and eval slices read.  The DCN mode travels to the model as
 the `dcn_kernel` argument; nothing here writes environment variables.
 """
 from __future__ import annotations
@@ -111,6 +111,7 @@ class Config:
 
     # model
     dcn_kernel: str = "auto"       # auto | off | on | rowband[:R] | halo[:R]
+    eval_batch: int = 1            # frames per run_batch call in test.py
     head_conv: int = -1            # -1 -> 256 for dla/hourglass, 64 for res
     down_ratio: int = 4
     rep: str = "cartesian"         # cartesian | polar | polar_fixed
@@ -154,9 +155,17 @@ class Config:
     test_scales: Tuple[float, ...] = (1.0,)
     nms: bool = False
     K: int = 128
+    thresh: float = 0.05           # score cut of the eval masks
     fix_res: bool = True
     flip_test: bool = False
     vis_thresh: float = 0.3
+
+    # oracle eval: GT maps in place of heads in validation (the
+    # reference's decoupling harness, trains/polydet.py:49-70)
+    eval_oracle_hm: bool = False
+    eval_oracle_poly: bool = False
+    eval_oracle_offset: bool = False
+    eval_oracle_pseudo_depth: bool = False
 
     def __post_init__(self):
         info = DATASET_INFO.get(self.dataset)

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..geometry.affine import get_affine_transform
+from ..utils.png import read_frame
 from .coco_poly import CocoPolyAnnotations
 
 # Cityscapes PCA colour-aug eigen decomposition
@@ -113,20 +114,23 @@ class BaseSampler:
         return len(self.images)
 
     def _load_image(self, img_id: int) -> np.ndarray:
-        """An HWC uint8 frame: `.npy` files are read with numpy, PNG/JPEG
-        with cv2 (raises where cv2 is missing); a missing file gives the
-        JAX package's deterministic noise of the annotated size."""
+        """An HWC uint8 frame: `.npy` files are read with numpy, PNG with
+        utils/png.py (BGR, as cv2.imread gives it), JPEG with cv2 (raises
+        where cv2 is missing); a missing file gives the JAX package's
+        deterministic noise of the annotated size."""
         info = self.coco.load_img(img_id)
         path = os.path.join(self.img_dir or "", info["file_name"])
         if os.path.isfile(path):
             if path.endswith(".npy"):
                 return np.load(path)
+            if path.lower().endswith(".png"):
+                return read_frame(path)
             try:
                 import cv2
             except ImportError as e:
                 raise RuntimeError(
-                    f"{path}: decoding PNG/JPEG needs cv2, which is not "
-                    f"installed; store frames as .npy instead") from e
+                    f"{path}: decoding JPEG needs cv2, which is not "
+                    f"installed; store frames as .png or .npy instead") from e
             img = cv2.imread(path)
             if img is not None:
                 return img

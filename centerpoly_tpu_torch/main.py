@@ -6,7 +6,10 @@
 (reference surface: src/main.py; the JAX package's main.py).  Trains on
 the card unless `--device cpu` is given.  Frames are read from the
 annotations' file names under the dataset's image directory (`.npy`
-with numpy; PNG/JPEG need cv2).
+with numpy, PNG with utils/png.py; JPEG needs cv2).  With
+`--val_intervals N` every N-th epoch validates: val loss, then the
+instance AP of the decoded val results (with GT maps for the heads the
+`--eval_oracle_*` flags name), which gates model_best.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ def main(argv=None, device=None):
     os.makedirs(save_dir, exist_ok=True)
     logger = Logger(save_dir, cfg.to_json())
     try:
-        trainer = Trainer(cfg, train_loader, val_loader, logger, device=device)
+        trainer = Trainer(cfg, train_loader, val_loader, logger, device=device,
+                          dataset_meta=meta)
         trainer.fit(save_dir)
     finally:
         logger.close()

@@ -70,7 +70,18 @@ line):
  12. smallhourglass and Hourglass-104 training through `main` (batch 4,
      512x1024, f32), 0 DCN launches, the loss falling, a checkpoint round
      trip and `train_vs_cpu` for smallhourglass, step p50, images/s, peak
-     memory and one profiled step for both (`phase_hourglass_train`).
+     memory and one profiled step for both (`phase_hourglass_train`);
+ 13. the polygon instance-AP eval path (`phase_eval`) on a PNG fixture of
+     4 Cityscapes-named 2048x1024 val frames written by the port's
+     encoder: `main` for one epoch (batch 4, 512x1024, f32, `off`) with
+     `--val_intervals 1` and all four `--eval_oracle_*` flags, whose AP
+     must pass 0.5, gate model_best, and equal to the last digit what
+     `_decode_outputs` and `run_eval` give on the CPU for the same val
+     batches with zero heads; then `python -m centerpoly_tpu_torch.test`
+     (bf16, rowband:6) on that model_best with `--eval_batch` 1 and 4, 16
+     rowband launches a forward; the host times of the rasterizer, the
+     PNG codec, the matcher and `run_eval`; the two runs' results agree
+     (`results_agree`); and test.py's frames/s once warm (`eval_rates`).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -265,16 +276,19 @@ def random_state_dict(model, seed: int, gain: float = 1.2):
 
 
 def phase_card():
+    """Returns (device name, device count, nvidia-smi's name and power
+    limit line)."""
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"[card] {name} x{count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
-    return name, count
+    return name, count, card
 
 
 def phase_build():
@@ -1544,6 +1558,212 @@ def phase_hourglass_train(root):
             train_vs_cpu(root, arch, "off", None)
 
 
+EVAL_FRAMES = 4
+EVAL_PASSES = 8     # timed passes over the split per test.py loop
+EVAL_TOP = 32       # rows a frame compared between eval_batch 1 and 4
+EVAL_CELL_PX = 8.0  # one output cell in 2048x1024 frame pixels (stride 4, 1/2)
+ORACLE_ARGS = ["--eval_oracle_hm", "--eval_oracle_poly", "--eval_oracle_offset",
+               "--eval_oracle_pseudo_depth"]
+
+
+def eval_host_times(meta, results, ann, out_dir, card):
+    """Host ms of the eval path's parts on `results`: the rasterizer per
+    frame, the PNG codec per mask (encode, decode) and per frame (decode
+    of the fixture's frame and of the same pixels Paeth-filtered, as real
+    Cityscapes PNGs are), the GT decode and the matcher per frame."""
+    from centerpoly_tpu_torch.eval.harness import run_instance_eval
+    from centerpoly_tpu_torch.eval.instance_eval import (
+        InstanceEvalConfig, load_prediction_dir, match_image)
+    from centerpoly_tpu_torch.eval.rasterize import rasterize_results
+    from centerpoly_tpu_torch.utils import png
+
+    id_to_file = {int(i): im["file_name"] for i, im in ann.imgs.items()}
+    n = len(results)
+    t0 = time.perf_counter()
+    rasterize_results(results, meta, out_dir, id_to_file)
+    rast = 1e3 * (time.perf_counter() - t0) / n
+    masks = [os.path.join(out_dir, "masks", f)
+             for f in sorted(os.listdir(os.path.join(out_dir, "masks")))]
+    arrays = [png.read_mask(m) for m in masks]
+    t0 = time.perf_counter()
+    blobs = [png.encode_png(a) for a in arrays]
+    enc = 1e3 * (time.perf_counter() - t0) / max(1, len(arrays))
+    t0 = time.perf_counter()
+    for b in blobs:
+        png.decode_png(b)
+    dec = 1e3 * (time.perf_counter() - t0) / max(1, len(blobs))
+    frames = [os.path.join(meta.img_dir("val"), id_to_file[int(i)])
+              for i in results]
+    t0 = time.perf_counter()
+    pixels = [png.read_frame(f) for f in frames]
+    frame_dec = 1e3 * (time.perf_counter() - t0) / n
+    paeth = png.encode_png(pixels[0][..., ::-1].copy(), filter=4)
+    t0 = time.perf_counter()
+    png.decode_png(paeth)
+    paeth_dec = 1e3 * (time.perf_counter() - t0)
+    gt_dir = meta.gt_instance_dir()
+    stems = [os.path.basename(f)[:-len(".png")] for f in frames]
+    t0 = time.perf_counter()
+    gts = {s: png.read_png(os.path.join(gt_dir, "synth", s.replace(
+        "leftImg8bit", "gtFine_instanceIds") + ".png")) for s in stems}
+    gt_dec = 1e3 * (time.perf_counter() - t0) / n
+    preds = load_prediction_dir(out_dir, stems)
+    cfg = InstanceEvalConfig()
+    t0 = time.perf_counter()
+    for s in stems:
+        match_image(gts[s], preds[s], cfg)
+    match = 1e3 * (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    run_instance_eval(meta, results, out_dir, annotations=ann,
+                      gt_instance_dir=gt_dir)
+    whole = time.perf_counter() - t0
+    print(f"[eval] host, per 2048x1024 frame: rasterize {rast:.1f} ms "
+          f"({len(masks)} masks of {n} frames), PNG mask encode {enc:.2f} "
+          f"ms / decode {dec:.2f} ms a mask, frame decode {frame_dec:.1f} "
+          f"ms (filter None) / {paeth_dec:.1f} ms (Paeth), GT decode "
+          f"{gt_dec:.1f} ms, match {match:.2f} ms; run_eval over the split "
+          f"{whole:.3f} s ({card})")
+
+
+def phase_eval(root, card):
+    """The polygon instance-AP eval path at full width on a PNG fixture:
+    `main` with AP-gated oracle validation, then test.py on its
+    model_best (see the module doc, phase 13)."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain, test as ttest
+    from centerpoly_tpu_torch.data.fixture import write_rect_fixture
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.train import checkpoint
+
+    eroot = os.path.join(root, "eval")
+    t0 = time.perf_counter()
+    write_rect_fixture(eroot, EVAL_FRAMES, SEED + 1, *FRAME_HW,
+                       splits=("train", "val"), png=True)
+    print(f"[eval] PNG fixture of {EVAL_FRAMES} 2048x1024 frames (train + "
+          f"val, 16-bit GT) in {time.perf_counter() - t0:.2f} s")
+    zero_counts()
+    tr = tmain.main(train_argv(eroot, "off") + ORACLE_ARGS)
+    save_dir = os.path.join(eroot, "exp", "cityscapes", "polydet",
+                            exp_id("dla_34", "off"))
+    with open(os.path.join(save_dir, "instance_ap.json")) as f:
+        card_res = json.load(f)
+    ap = card_res["allAp"]
+    print(f"[eval] main --val_intervals 1, all four oracles: AP {ap!r} "
+          f"AP50 {card_res['allAp50%']!r}, best {tr.best!r}")
+    check(ap > 0.5, f"oracle AP {ap} <= 0.5")
+    check(tr.best == ap, f"model_best gated on {tr.best}, not on AP {ap}")
+    check_saved(eroot, "dla_34", "off")
+    # the same val batches decoded on the CPU with zero heads: under all
+    # four oracles the result depends only on the ground truth
+    cpu_results = {}
+    for batch in tr.val_loader:
+        b = batch["input"].shape[0]
+        zero = {k: torch.zeros(b, tr.cfg.output_h, tr.cfg.output_w, c)
+                for k, c in tr.cfg.heads.items()}
+        cpu_results.update(tr._decode_outputs(zero, batch))
+    cpu_res = tr.meta.run_eval(cpu_results, os.path.join(eroot, "cpu_ref"),
+                               thresh=tr.cfg.thresh)
+    same = (json.dumps(cpu_res, sort_keys=True)
+            == json.dumps(card_res, sort_keys=True))
+    print(f"[eval] CPU zero-head AP {cpu_res['allAp']!r}: "
+          f"{'equal' if same else 'DIFFERENT'}")
+    check(same, "oracle AP on the card differs from the CPU's")
+    ann = tr.val_loader.sampler.coco
+    eval_host_times(tr.meta, cpu_results, ann, os.path.join(eroot, "times"),
+                    card)
+    del tr
+    torch.cuda.empty_cache()
+
+    argv = ["polydet", "--dataset", "cityscapes", "--data_dir", eroot,
+            "--save_dir", os.path.join(eroot, "exp"), "--load_model",
+            checkpoint.checkpoint_path(save_dir, "best")]
+    outs = {}
+    for bs in (1, 4):
+        zero_counts()
+        out = outs[bs] = ttest.main(argv + ["--exp_id", f"test_b{bs}",
+                                            "--eval_batch", str(bs)])
+        torch.cuda.synchronize()
+        counts = dict(dcn.launches)
+        forwards = EVAL_FRAMES // bs
+        want = dict.fromkeys(counts, 0)
+        want["rowband"] = 16 * forwards
+        res = out["ap"]
+        print(f"[eval] test.py --eval_batch {bs}: {out['frames']} frames, "
+              f"run_eval {out['eval_seconds']:.3f} s, AP "
+              f"{res and res['allAp']!r}, launches {counts} ({card})")
+        check(out["frames"] == EVAL_FRAMES and counts == want,
+              f"expected 16 rowband launches a forward, {want}")
+        check(res is not None and np.isfinite(res["allAp"])
+              and all(os.path.exists(os.path.join(out["save_dir"], f))
+                      for f in ("results.json", "instance_ap.json",
+                                "gtInstances.json")),
+              f"test.py --eval_batch {bs} wrote no AP")
+    ds, dc = results_agree(outs[1]["results"], outs[4]["results"])
+    print(f"[eval] test.py eval_batch 1 and 4 agree: the same frames and "
+          f"classes, the top {EVAL_TOP} rows of each frame found in both "
+          f"(largest differences: score {ds:.2e}, box and vertices {dc:.3f} "
+          f"px)")
+    eval_rates(argv, card)
+
+
+def results_agree(a, b):
+    """Check test.py's results at eval_batch 1 (`a`) and 4 (`b`): the same
+    frames and classes, K rows a frame in both, and each of a frame's
+    `EVAL_TOP` highest-scoring rows of `a` found in `b` in the same class,
+    its score within 0.01 and its box and vertices within `EVAL_CELL_PX`
+    (one output cell; bf16 nets at two batch sizes run other convolution
+    algorithms and DCN splits).  Returns the largest score and coordinate
+    differences of the matched rows."""
+    check(a.keys() == b.keys(), "eval_batch 1 and 4 scored other frames")
+    ds = dc = 0.0
+    for img_id, per in a.items():
+        other = b[img_id]
+        check(per.keys() == other.keys()
+              and sum(map(len, per.values())) == sum(map(len, other.values())),
+              f"frame {img_id}: other classes or row counts at eval_batch 4")
+        rows = [(r[4], cls, np.asarray(r, np.float64))
+                for cls, v in per.items() for r in v]
+        for score, cls, row in sorted(rows, key=lambda t: -t[0])[:EVAL_TOP]:
+            cand = np.asarray(other[cls], np.float64).reshape(-1, len(row))
+            d_s = np.abs(cand[:, 4] - score)
+            d_c = np.abs(np.delete(cand - row, [4, len(row) - 1], 1)).max(1)
+            ok = (d_s <= 0.01) & (d_c <= EVAL_CELL_PX)
+            check(ok.any(), f"frame {img_id}: a class {cls} row of score "
+                  f"{score:.4f} has no counterpart at eval_batch 4")
+            j = np.flatnonzero(ok)[np.argmin(d_c[ok])]
+            ds, dc = max(ds, float(d_s[j])), max(dc, float(d_c[j]))
+    return ds, dc
+
+
+def eval_rates(argv, card):
+    """test.py's two detector loops at a steady rate: one detector, warmed
+    by an untimed pass over the split, then `EVAL_PASSES` timed passes of
+    each loop (frame decode from PNG included, as test.py runs it);
+    frames/s of each pass as median, min and max, and at eval_batch 1 the
+    stage means that test.py prints for the last pass."""
+    import contextlib
+    import io
+    from centerpoly_tpu_torch import test as ttest
+
+    _, _, _, sampler, det = ttest.setup(argv)
+    loops = {1: lambda: ttest._run_single(det, sampler),
+             4: lambda: ttest._run_batched(det, sampler, 4)}
+    for bs, loop in loops.items():
+        log, rates = io.StringIO(), []
+        with contextlib.redirect_stdout(log):
+            loop()
+            for _ in range(EVAL_PASSES):
+                t0 = time.perf_counter()
+                loop()
+                rates.append(len(sampler) / (time.perf_counter() - t0))
+        stages = (f", last pass {log.getvalue().splitlines()[-1]}"
+                  if bs == 1 else "")
+        print(f"[eval] test.py loop, eval_batch {bs}, warm: "
+              f"{statistics.median(rates):.3f} frames/s median "
+              f"({min(rates):.3f}-{max(rates):.3f}) over {EVAL_PASSES} "
+              f"passes of {len(sampler)} frames{stages} ({card})")
+
+
 def main() -> int:
     import argparse
     import tempfile
@@ -1563,7 +1783,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from centerpoly_tpu_torch.data.fixture import write_rect_fixture
 
-    name, count = phase_card()
+    name, count, card = phase_card()
     phase_build()
     if args.bwd_times:
         phase_bwd_times(check_plain=False)
@@ -1588,6 +1808,7 @@ def main() -> int:
         del trainers
         phase_hourglass_infer(frames)
         phase_hourglass_train(root)
+        phase_eval(root, card)
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],

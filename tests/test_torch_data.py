@@ -193,13 +193,27 @@ def test_sampler_missing_file_takes_the_same_noise(frames_root):
 
 
 def test_sampler_png_without_cv2_raises(frames_root, monkeypatch):
+    """Without cv2 a PNG frame still reads (utils/png.py), the pixels
+    cv2.imread gives; only a JPEG frame raises, naming cv2."""
+    cv2 = pytest.importorskip("cv2")
     port, _ = _samplers(frames_root, "train", png=False)
     port.img_dir = os.path.join(frames_root, "png", "train")
     port.coco = CocoPolyAnnotations(os.path.join(frames_root, "png",
                                                  "train.json"))
+    name = port.coco.load_img(port.images[0])["file_name"]
+    want = cv2.imread(os.path.join(port.img_dir, name))
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="needs cv2"):
-        port(0)
+    np.testing.assert_array_equal(port._load_image(port.images[0]), want)
+    port(0)
+    jpeg = os.path.join(port.img_dir, name.replace(".png", ".jpg"))
+    with open(jpeg, "wb") as f:
+        f.write(b"\xff\xd8")
+    port.coco.load_img(port.images[0])["file_name"] = os.path.basename(jpeg)
+    try:
+        with pytest.raises(RuntimeError, match="needs cv2"):
+            port(0)
+    finally:
+        os.remove(jpeg)
 
 
 # -- the loader --------------------------------------------------------------

@@ -422,3 +422,25 @@ def test_smallhourglass_f32_on_card_matches_cpu(cuda):
     assert dcn.launches == before
     for k in heads:
         assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
+
+
+@pytest.mark.parametrize("eval_batch", [1, 2])
+def test_eval_cli_on_card(cuda, tmp_path, monkeypatch, eval_batch):
+    """`python -m centerpoly_tpu_torch.test` on the card (bf16, the
+    rowband:6 default) over a 4-frame PNG fixture: 16 rowband launches a
+    forward, and an AP from the evaluator."""
+    from centerpoly_tpu_torch import test as ttest
+    from centerpoly_tpu_torch.data.datasets import CityscapesMeta
+    from centerpoly_tpu_torch.data.fixture import write_rect_fixture
+    monkeypatch.setattr(CityscapesMeta, "eval_image_size", (128, 256))
+    root = write_rect_fixture(str(tmp_path), 4, 0, 128, 256,
+                              splits=("val",), png=True)
+    before = dict(dcn.launches)
+    out = ttest.main(["polydet", "--data_dir", root, "--save_dir",
+                      str(tmp_path / "exp"), "--input_h", "64", "--input_w",
+                      "128", "--head_conv", "32", "--K", "16",
+                      "--eval_batch", str(eval_batch)])
+    torch.cuda.synchronize()
+    assert dcn.launches["rowband"] == before["rowband"] + 16 * 4 // eval_batch
+    assert out["frames"] == 4 and out["ap"] is not None
+    assert np.isfinite(out["ap"]["allAp"])

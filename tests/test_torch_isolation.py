@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (every module) pulls in
 neither JAX nor the JAX package, and no source names either; nor does
-chip_smoke.py, which runs where JAX is not installed."""
+chip_smoke.py, which runs where JAX is not installed.  Its eval path runs
+without PIL and cv2, which that machine lacks too."""
 import os
 import subprocess
 import sys
@@ -31,6 +32,35 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 20
+
+
+_EVAL_WITHOUT_PIL_CV2 = """
+import sys
+sys.modules["PIL"] = sys.modules["cv2"] = None
+from centerpoly_tpu_torch import test
+from centerpoly_tpu_torch.data.datasets import CityscapesMeta
+from centerpoly_tpu_torch.data.fixture import write_rect_fixture
+CityscapesMeta.eval_image_size = (128, 256)
+root = write_rect_fixture(sys.argv[1], 2, 0, 128, 256, splits=("val",),
+                          png=True)
+out = test.main(["polydet", "--data_dir", root, "--save_dir", root + "/exp",
+                 "--input_h", "64", "--input_w", "128", "--head_conv", "16",
+                 "--K", "8", "--device", "cpu"])
+assert out["ap"] is not None and out["frames"] == 2, out
+print("AP", out["ap"]["allAp"])
+"""
+
+
+def test_eval_path_needs_no_pil_or_cv2(tmp_path):
+    """test.main on a PNG fixture, with PIL and cv2 unimportable, writes
+    the frames, reads them, rasterizes, reads the masks and GT back and
+    reaches an AP."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _EVAL_WITHOUT_PIL_CV2,
+                           str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "AP " in proc.stdout
 
 
 def _sources():
