@@ -2,8 +2,9 @@
 
 The port's own copy of the JAX package's `Config` (itself the reference's
 argparse `opts`, src/lib/opts.py:9-459), cut to the fields the inference,
-polydet training and eval slices read.  The DCN mode travels to the model as
-the `dcn_kernel` argument; nothing here writes environment variables.
+polydet training, eval and data-parallel slices read.  The DCN mode
+travels to the model as the `dcn_kernel` argument; nothing here writes
+environment variables.
 """
 from __future__ import annotations
 
@@ -112,6 +113,8 @@ class Config:
     # model
     dcn_kernel: str = "auto"       # auto | off | on | rowband[:R] | halo[:R]
     eval_batch: int = 1            # frames per run_batch call in test.py
+    infer_devices: int = 0         # >1: test.py's run_batch over this many
+                                   # cards, one replica each
     head_conv: int = -1            # -1 -> 256 for dla/hourglass, 64 for res
     down_ratio: int = 4
     rep: str = "cartesian"         # cartesian | polar | polar_fixed
@@ -166,6 +169,13 @@ class Config:
     eval_oracle_poly: bool = False
     eval_oracle_offset: bool = False
     eval_oracle_pseudo_depth: bool = False
+
+    # data parallelism: one process per card (train/mesh.py)
+    mesh_shape: Tuple[int, ...] = (-1,)   # parsed as the JAX CLI does; unread
+    distributed: bool = False      # join a process group (main.py)
+    coordinator_address: str = ""  # host:port of rank 0; "" = torchrun's env
+    num_processes: int = -1        # world size; -1 = torchrun's env
+    process_id: int = -1           # this process's rank; -1 = torchrun's env
 
     def __post_init__(self):
         info = DATASET_INFO.get(self.dataset)

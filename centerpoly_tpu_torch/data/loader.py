@@ -59,7 +59,18 @@ class Loader:
 
     def __init__(self, sampler: Callable[[int], dict], num_samples: int,
                  batch_size: int, shuffle: bool = True, drop_last: bool = True,
-                 prefetch: int = 2, seed: int = 0, num_workers: int = 0):
+                 prefetch: int = 2, seed: int = 0, num_workers: int = 0,
+                 rank: int = 0, world: int = 1):
+        """rank/world shard the sample index space over data-parallel
+        ranks, as the JAX package's Loader does: every rank shuffles the
+        whole index space with the same seed and keeps
+        indices[rank::world][:N // world], so the shards are disjoint and
+        every rank runs the same number of batches (a collective step
+        would wait forever otherwise); the N % world left over rotate in
+        through the next epoch's shuffle, or, unshuffled (val), through a
+        roll of the index space by epoch * (N % world)."""
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of world {world}")
         self.sampler = sampler
         self.num_samples = num_samples
         self.batch_size = batch_size
@@ -67,17 +78,35 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self.rank = rank
+        self.world = world
         self.rng = np.random.RandomState(seed)
+        self._epoch = 0
+        # indices of the last pass that no rank's shard held
+        self.left_out = np.zeros(0, np.int64)
+
+    @property
+    def _num_local(self):
+        if self.world == 1:
+            return self.num_samples
+        return self.num_samples // self.world
 
     def __len__(self):
         if self.drop_last:
-            return self.num_samples // self.batch_size
-        return (self.num_samples + self.batch_size - 1) // self.batch_size
+            return self._num_local // self.batch_size
+        return (self._num_local + self.batch_size - 1) // self.batch_size
 
     def _index_batches(self):
         idx = np.arange(self.num_samples)
         if self.shuffle:
+            # the same seed on every rank: one permutation, split by stride
             self.rng.shuffle(idx)
+        elif self.world > 1:
+            idx = np.roll(idx, -self._epoch * (self.num_samples % self.world))
+        self._epoch += 1
+        if self.world > 1:
+            self.left_out = idx[self._num_local * self.world:]
+            idx = idx[self.rank::self.world][:self._num_local]
         n = len(self) * self.batch_size if self.drop_last else len(idx)
         for i in range(0, n, self.batch_size):
             yield idx[i:i + self.batch_size]
@@ -116,7 +145,10 @@ class Loader:
         # live, multithreaded CUDA runtime, and forking a threaded process
         # can deadlock; the sampler reaches the workers pickled
         ctx = mp.get_context("spawn")
-        epoch_seed = int(self.rng.randint(0, 2 ** 31 - 1))
+        # the shared draw first (it keeps the ranks' permutations in step),
+        # then each rank's own augmentation stream
+        epoch_seed = (int(self.rng.randint(0, 2 ** 31 - 1))
+                      + self.rank * 7919)
         with ctx.Pool(self.num_workers, initializer=_worker_init,
                       initargs=(self.sampler, epoch_seed)) as pool:
             # imap keeps submission order; workers run ahead by the

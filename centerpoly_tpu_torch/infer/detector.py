@@ -9,13 +9,18 @@ poly..., depth] in source-image coordinates.
 On the device: the axis-aligned affine warp + normalisation of the full
 frame, the model, sigmoid, optional flip average and the top-K decode.
 On the host: the inverse affine back to source coordinates and the merge.
-`run_batch(images)` runs one forward over a stack of frames;
-`run_stream(frames)` pipelines a stream of them (several in flight).
+`run_batch(images)` runs one forward over a stack of frames, or, with a
+list of devices, one replica of the net per device (the JAX package's
+`mesh`); `run_stream(frames)` pipelines a stream of them (several in
+flight).
 """
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Mapping
+import contextlib
+import copy
+import dataclasses
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -64,16 +69,37 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+@dataclasses.dataclass
+class Replica:
+    """One copy of the net for `run_batch`: its device, model,
+    normalisation constants and CUDA stream (None on the CPU, and for the
+    detector's own model without a device list: it runs on the current
+    stream)."""
+    device: torch.device
+    model: torch.nn.Module
+    mean: torch.Tensor
+    std: torch.Tensor
+    stream: object = None
+
+
 class BaseDetector:
     """Shared run loop: pre-process -> device program -> post -> merge,
     with the reference's 7-stage timing (base_detector.py:105-191)."""
 
     def __init__(self, cfg: Config, variables=None, rng_seed: int = 0,
-                 device=None):
+                 device=None, devices: Sequence | None = None):
         """`variables`: a state_dict of this package, or the JAX package's
         {"params", "batch_stats"} tree; else cfg.load_model (a reference
-        .pth); else random weights from `rng_seed`."""
+        .pth); else random weights from `rng_seed`.  `devices`: run_batch
+        shards its frames over one replica of the net on each entry (an
+        entry may repeat: two replicas on one card), each on its own
+        stream.  `run` and `run_stream` use the detector's own net (on
+        the first entry by default), which is also the first replica when
+        it lives on the first entry."""
         self.cfg = cfg
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            device = devices[0] if device is None else device
         self.device = resolve_device(device)
         # bf16 only on the card; the CPU path is the f32 reference
         self.dtype = (torch.bfloat16 if cfg.mixed_precision
@@ -101,23 +127,46 @@ class BaseDetector:
         self.num_classes = cfg.num_classes
         self.max_per_image = cfg.K
         self.scales = cfg.test_scales
+        own = Replica(self.device, self.model, self.mean, self.std)
+        self.replicas = [own] if devices is None else [
+            self._replica(d, own, share=i == 0 and d == self.device)
+            for i, d in enumerate(devices)]
+
+    @staticmethod
+    def _replica(device: torch.device, own: Replica,
+                 share: bool = False) -> Replica:
+        """The detector's own net (`share`: the first entry, on its
+        device) or a copy of it and its constants on `device`, with a
+        stream of its own on a card."""
+        rep = (dataclasses.replace(own) if share else
+               Replica(device, copy.deepcopy(own.model).to(device),
+                       own.mean.to(device), own.std.to(device)))
+        if device.type == "cuda":
+            rep.stream = torch.cuda.Stream(device)
+            # the copies ran on the default stream: done before any
+            # replica's stream reads them
+            torch.cuda.synchronize(device)
+        return rep
 
     # -- device programs -------------------------------------------------
 
-    def _pre_device(self, frames_u8: torch.Tensor, trans, size) -> torch.Tensor:
+    def _pre_device(self, frames_u8: torch.Tensor, trans, size,
+                    replica: Replica | None = None) -> torch.Tensor:
         """uint8 (B, H, W, 3) frames -> normalized (B[*2], 3, inp_h, inp_w)
-        network input in the model's dtype and memory format."""
+        network input in the model's dtype and memory format, with the
+        constants of `replica` (the detector's own by default)."""
+        rep = replica or self.replicas[0]
         x = torch.stack([warp_axis_aligned(f.float(), trans, size)
                          for f in frames_u8])
-        x = ((x / 255.0 - self.mean) / self.std).permute(0, 3, 1, 2)
+        x = ((x / 255.0 - rep.mean) / rep.std).permute(0, 3, 1, 2)
         if self.cfg.flip_test:
             x = torch.cat([x, x.flip(3)])
         return x.to(self.dtype, memory_format=torch.channels_last)
 
-    def _heads(self, images):
-        return self.model(images)[-1]
+    def _heads(self, images, model=None):
+        return (model or self.model)(images)[-1]
 
-    def _process_device(self, images):
+    def _process_device(self, images, model=None):
         raise NotImplementedError
 
     # -- host orchestration ---------------------------------------------
@@ -185,14 +234,28 @@ class BaseDetector:
                 **{k: times.get(k, 0.0) for k in
                    ("load", "pre", "net", "dec", "post", "merge")}}
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """Host array -> the device without waiting: on the card through
-        pinned memory with non_blocking=True (a pageable copy would wait
-        for the frames already in flight)."""
+    def _upload(self, array: np.ndarray, device=None) -> torch.Tensor:
+        """Host array -> `device` (the detector's by default) without
+        waiting: on the card through pinned memory with non_blocking=True
+        (a pageable copy would wait for the frames already in flight)."""
+        device = device or self.device
         t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
+
+    @staticmethod
+    def _fetch(dets: torch.Tensor):
+        """(detections on the host, CUDA event or None): on the card they
+        are copied to pinned host memory behind an event on the current
+        stream and are valid once it has completed."""
+        if dets.device.type != "cuda":
+            return dets.cpu(), None
+        host = torch.empty(dets.shape, dtype=dets.dtype, pin_memory=True)
+        host.copy_(dets, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
 
     def _dispatch(self, frame: torch.Tensor, scale: float):
         """Pre-process, forward and decode one (1, H, W, 3) uint8 frame on
@@ -203,14 +266,7 @@ class BaseDetector:
         trans, meta = self._scaled_trans(*frame.shape[1:3], scale)
         images = self._pre_device(frame, self._upload(trans.astype(np.float32)),
                                   (meta["inp_h"], meta["inp_w"]))
-        dets = self._process_device(images)
-        if self.device.type != "cuda":
-            return dets.cpu(), None, meta
-        host = torch.empty(dets.shape, dtype=dets.dtype, pin_memory=True)
-        host.copy_(dets, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done, meta
+        return (*self._fetch(self._process_device(images)), meta)
 
     @torch.no_grad()
     def run_stream(self, frames, depth: int = 2):
@@ -250,20 +306,41 @@ class BaseDetector:
     def run_batch(self, images) -> list:
         """Batched pipeline: one forward per scale over the whole stack of
         same-shaped frames (flip TTA as [originals(B); flipped(B)]).
-        Returns a list of {"results": ...} dicts (no stage timers)."""
-        frames = torch.from_numpy(np.stack([np.asarray(im) for im in images])
-                                  ).to(self.device)
+        Returns a list of {"results": ...} dicts (no stage timers).
+
+        With several replicas (`devices`) the stack is padded to a
+        multiple of their count with copies of the last frame (the JAX
+        package's run_batch over a mesh) and split in order; each slice
+        runs on its replica's device and stream, all launched from this
+        thread before any is waited for, and only the real frames'
+        results come back."""
+        frames = np.stack([np.asarray(im) for im in images])
         h, w = frames.shape[1:3]
-        per_scale = []
-        for scale in self.scales:
-            trans, meta = self._scaled_trans(h, w, scale)
-            x = self._pre_device(frames, trans, (meta["inp_h"], meta["inp_w"]))
-            dets_host = self._process_device(x).cpu().numpy()
-            per_scale.append([self._post(dets_host[i:i + 1], meta, scale)
-                              for i in range(len(images))])
-        return [{"results": self.merge_outputs(
-                    [dets_i[i] for dets_i in per_scale])}
-                for i in range(len(images))]
+        n = len(self.replicas)
+        pad = (-len(frames)) % n
+        if pad:
+            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
+        scaled = [(self._scaled_trans(h, w, s), s) for s in self.scales]
+        launched = []
+        for rep, chunk in zip(self.replicas, np.split(frames, n)):
+            with (torch.cuda.stream(rep.stream) if rep.stream is not None
+                  else contextlib.nullcontext()):
+                x_u8 = self._upload(chunk, rep.device)
+                launched.append([self._fetch(self._process_device(
+                    self._pre_device(x_u8, trans,
+                                     (meta["inp_h"], meta["inp_w"]), rep),
+                    rep.model)) for (trans, meta), _ in scaled])
+        per_frame = []
+        for per_scale in launched:
+            for _, done in per_scale:
+                if done is not None:
+                    done.synchronize()
+            dets = [host.numpy() for host, _ in per_scale]
+            per_frame += [[self._post(d[i:i + 1], meta, scale)
+                           for d, ((_, meta), scale) in zip(dets, scaled)]
+                          for i in range(len(dets[0]))]
+        return [{"results": self.merge_outputs(d)}
+                for d in per_frame[:len(images)]]
 
     def merge_outputs(self, detections):
         """Concat scales + optional soft-NMS + global top-K score cut
@@ -288,10 +365,10 @@ class BaseDetector:
 class PolydetDetector(BaseDetector):
     """Polygon instance detector (ref detectors/polydet.py)."""
 
-    def _process_device(self, images):
+    def _process_device(self, images, model=None):
         cfg = self.cfg
         out = {k: v.float().permute(0, 2, 3, 1)
-               for k, v in self._heads(images).items()}   # NHWC views
+               for k, v in self._heads(images, model).items()}   # NHWC views
         hm = torch.sigmoid(out["hm"])
         poly = out["poly"]
         depth = out["pseudo_depth"]
@@ -322,11 +399,15 @@ DETECTORS = {"polydet": PolydetDetector}
 
 
 def create_detector(cfg: Config, variables: Mapping | None = None,
-                    device=None) -> BaseDetector:
+                    device=None, devices: Sequence | None = None
+                    ) -> BaseDetector:
     """detector_factory equivalent (ref detectors/detector_factory.py).
-    Runs on the card unless `device` names another (e.g. "cpu")."""
+    Runs on the card unless `device` names another (e.g. "cpu").
+    `devices` (the JAX package's `mesh` argument): run_batch serves the
+    frame stack over one replica on each (train/mesh.py::serving_devices
+    gives the first n cards)."""
     cls = DETECTORS.get(cfg.task)
     if cls is None:
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP.md queue A, secondary surface)")
-    return cls(cfg, variables=variables, device=device)
+    return cls(cfg, variables=variables, device=device, devices=devices)

@@ -9,6 +9,7 @@ import torch
 
 from ..geometry.polygon import abs_, polar_to_cartesian, polygon_iou
 from ..ops.gather import gather_feat_nhwc
+from .normalise import global_sum, share
 
 
 def _unwrap_angles(angles: torch.Tensor) -> torch.Tensor:
@@ -18,10 +19,12 @@ def _unwrap_angles(angles: torch.Tensor) -> torch.Tensor:
     return torch.where((angles < 0) & seen_pos, angles + 2 * 3.14, angles)
 
 
-def order_loss(pred_poly: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def order_loss(pred_poly: torch.Tensor, mask: torch.Tensor,
+               group=None) -> torch.Tensor:
     """Sum over masked objects of max(0, theta_j - theta_k) for j < k,
     over (10 * mask.sum() + 1e-4) (ref losses.py:891-906).
-    pred_poly (B, K, 2N) polar; mask (B, K)."""
+    pred_poly (B, K, 2N) polar; mask (B, K).  `group`: the mask summed
+    over its ranks (losses/normalise.py), as in each loss below."""
     angles = _unwrap_angles(pred_poly[..., 1::2])
     n = angles.shape[-1]
     diff = angles[..., :, None] - angles[..., None, :]
@@ -30,11 +33,11 @@ def order_loss(pred_poly: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     pos = torch.maximum(diff, torch.zeros_like(diff)) * upper
     per_obj = pos.sum(dim=(-1, -2))
     m = mask.to(per_obj.dtype)
-    return (per_obj * m).sum() / (10.0 * m.sum() + 1e-4)
+    return (per_obj * m).sum() / (10.0 * global_sum(m.sum(), group) + 1e-4)
 
 
 def poly_iou_loss(pred_poly: torch.Tensor, target_poly: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor, group=None) -> torch.Tensor:
     """1 - sum(IoU) / (mask.sum() + 1e-6) over masked objects: predicted
     (r, theta) pairs sorted by theta (stable, as jnp.argsort), |r|, exact
     IoU against the target polygon (ref losses.py:876-888)."""
@@ -47,17 +50,19 @@ def poly_iou_loss(pred_poly: torch.Tensor, target_poly: torch.Tensor,
     pred = torch.cat([abs_(pred[..., 0:1]), pred[..., 1:2]], dim=-1)
     iou = polygon_iou(polar_to_cartesian(pred), polar_to_cartesian(tgt))
     m = mask.to(iou.dtype)
-    return 1.0 - (iou * m).sum() / (m.sum() + 1e-6)
+    return share(group) - (iou * m).sum() / (global_sum(m.sum(), group)
+                                             + 1e-6)
 
 
 def poly_l1_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
-                 rep: str, deadzone: float | None = None) -> torch.Tensor:
+                 rep: str, deadzone: float | None = None,
+                 group=None) -> torch.Tensor:
     """Masked L1 over polygon channels (ref losses.py:910-945), normalised
     by the expanded mask sum (objects x 2N) + 1e-6.  cartesian: plain L1
     (with `deadzone`, only |err| >= it counts); polar: L1 on the radii
     (even channels) + sum(1 - cos(dtheta)); polar_fixed: radii only."""
     m = mask[..., None].to(pred.dtype).expand_as(pred)
-    norm = m.sum() + 1e-6
+    norm = global_sum(m.sum(), group) + 1e-6
     if rep == "cartesian":
         err = abs_(pred * m - target * m)
         if deadzone is not None:
@@ -76,7 +81,7 @@ def poly_l1_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
 
 def poly_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
               target: torch.Tensor, rep: str = "cartesian", kind: str = "l1",
-              with_order: bool = False):
+              with_order: bool = False, group=None):
     """Polygon loss dispatch (ref losses.py:838-959).  output (B, H, W, 2N)
     head map; mask, ind (B, K); target (B, K, 2N) in `rep`; kind l1 | iou |
     l1+iou | relu.  Returns the loss, or (loss, order) with `with_order`.
@@ -91,11 +96,12 @@ def poly_loss(output: torch.Tensor, mask: torch.Tensor, ind: torch.Tensor,
                     "poly_loss kind 'iou'/'l1+iou' requires a polar "
                     "rep: poly_iou_loss sorts (r, theta) pairs by theta")
         else:
-            loss = poly_iou_loss(pred, target, mask)
+            loss = poly_iou_loss(pred, target, mask, group)
     if kind in ("l1", "l1+iou"):
-        loss = loss + poly_l1_loss(pred, target, mask, rep)
+        loss = loss + poly_l1_loss(pred, target, mask, rep, group=group)
     elif kind == "relu":
-        loss = loss + poly_l1_loss(pred, target, mask, rep, deadzone=20.0)
+        loss = loss + poly_l1_loss(pred, target, mask, rep, deadzone=20.0,
+                                   group=group)
     if with_order:
-        return loss, order_loss(pred, mask)
+        return loss, order_loss(pred, mask, group)
     return loss

@@ -14,6 +14,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from .focal import clamped_sigmoid, focal_loss
+from .normalise import global_sum
 from .poly import poly_loss
 from .regression import reg_l1_loss
 
@@ -33,25 +34,31 @@ class PolydetLossConfig:
 
 
 def polydet_loss(outputs: List[Dict[str, torch.Tensor]],
-                 batch: Dict[str, torch.Tensor], cfg: PolydetLossConfig
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                 batch: Dict[str, torch.Tensor], cfg: PolydetLossConfig,
+                 group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs: per-stack dicts of NHWC head maps (raw logits for 'hm');
     batch: 'hm' (B,H,W,C), 'reg_mask' (B,K), 'ind' (B,K), 'poly'
     (B,K,2N), 'pseudo_depth' (B,K,1), optional 'reg' (B,K,2).  Returns
-    (loss, stats) with the reference's stat keys."""
+    (loss, stats) with the reference's stat keys.  With a process group,
+    this rank's share of the global batch's loss and stats: every
+    denominator is summed over the group (losses/normalise.py), so the
+    ranks' shares sum to the global values."""
     num_stacks = len(outputs)
     hm_l = off_l = poly_l = depth_l = order_l = 0.0
     for out in outputs:
         if cfg.mse_loss:
-            hm_l += torch.mean((out["hm"] - batch["hm"]) ** 2) / num_stacks
+            sq = (out["hm"] - batch["hm"]) ** 2
+            hm_l += (torch.mean(sq) if group is None else sq.sum() / global_sum(
+                sq.new_tensor(sq.numel()), group)) / num_stacks
         else:
             hm_l += focal_loss(clamped_sigmoid(out["hm"]),
-                               batch["hm"]) / num_stacks
+                               batch["hm"], group) / num_stacks
         depth_l += reg_l1_loss(out["pseudo_depth"], batch["reg_mask"],
-                               batch["ind"], batch["pseudo_depth"]) / num_stacks
+                               batch["ind"], batch["pseudo_depth"],
+                               group) / num_stacks
         p = poly_loss(out["poly"], batch["reg_mask"], batch["ind"],
                       batch["poly"], rep=cfg.rep, kind=cfg.poly_loss,
-                      with_order=cfg.poly_order)
+                      with_order=cfg.poly_order, group=group)
         if cfg.poly_order:
             poly_l += p[0] / num_stacks
             order_l += p[1] / num_stacks
@@ -59,7 +66,7 @@ def polydet_loss(outputs: List[Dict[str, torch.Tensor]],
             poly_l += p / num_stacks
         if cfg.reg_offset and cfg.off_weight > 0:
             off_l += reg_l1_loss(out["reg"], batch["reg_mask"], batch["ind"],
-                                 batch["reg"]) / num_stacks
+                                 batch["reg"], group) / num_stacks
     poly_total = poly_l + order_l if cfg.poly_order else poly_l
     loss = (cfg.hm_weight * hm_l + cfg.off_weight * off_l
             + cfg.poly_weight * poly_total + cfg.depth_weight * depth_l)

@@ -10,6 +10,20 @@ with numpy, PNG with utils/png.py; JPEG needs cv2).  With
 `--val_intervals N` every N-th epoch validates: val loss, then the
 instance AP of the decoded val results (with GT maps for the heads the
 `--eval_oracle_*` flags name), which gates model_best.
+
+`--batch_size` is the global batch.  On a host with several cards whose
+count divides it, `main` runs one process per card (NCCL on localhost),
+each loading batch_size / cards, as the JAX package meshes every device.
+`--distributed` joins a group launched from outside instead: with
+`--coordinator_address host:port --num_processes N --process_id i` on
+each process (one host: each rank takes the card of its process id), or
+with no triple under torchrun, which also spans several hosts:
+
+    torchrun --nproc_per_node 4 -m centerpoly_tpu_torch.main polydet \
+        --distributed --data_dir <root> --batch_size 32 ...
+
+`--device cpu` (or any named device) keeps one process; with
+`--distributed` it joins a gloo group.
 """
 from __future__ import annotations
 
@@ -17,11 +31,16 @@ import os
 import sys
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 
 def main(argv=None, device=None):
+    """Train from `argv` (sys.argv by default).  Returns the Trainer, or
+    None when the run was spread over one spawned process per card."""
     from .configs import Config
     from .data import DATASETS, SAMPLERS, CocoPolyAnnotations, Loader
+    from .train import mesh
     from .train.trainer import Trainer
     from .utils.logger import Logger
 
@@ -31,7 +50,29 @@ def main(argv=None, device=None):
         device = argv[i + 1]
         del argv[i:i + 2]
     cfg = Config.from_args(argv)
+    if not cfg.distributed and device is None:
+        n = torch.cuda.device_count()
+        if n > 1 and cfg.batch_size % n == 0:
+            # the JAX Trainer meshes every device when the batch divides
+            # (trainer.py:83-85): here one process per card over NCCL
+            torch.multiprocessing.spawn(
+                _rank_main, args=(argv, f"localhost:{mesh.free_port()}", n),
+                nprocs=n)
+            return None
     np.random.seed(cfg.seed)
+
+    group, rank, world = None, 0, 1
+    if cfg.distributed:
+        if mesh.initialize_distributed(cfg.coordinator_address,
+                                       cfg.num_processes, cfg.process_id,
+                                       device=device or "cuda"):
+            group = dist.group.WORLD
+            rank, world = dist.get_rank(), dist.get_world_size()
+            device = mesh.make_mesh(device=device or "cuda")
+    if cfg.batch_size % world:
+        raise SystemExit(f"--batch_size {cfg.batch_size} (global) does not "
+                         f"divide over {world} processes")
+    local_batch = cfg.batch_size // world
 
     meta_cls = DATASETS.get(cfg.dataset)
     if meta_cls is None:
@@ -43,29 +84,42 @@ def main(argv=None, device=None):
     train_ann = CocoPolyAnnotations(meta.annot_path("train"))
     train_sampler = sampler_cls(cfg, meta, train_ann, split="train",
                                 img_dir=meta.img_dir("train"))
-    train_loader = Loader(train_sampler, len(train_sampler), cfg.batch_size,
+    train_loader = Loader(train_sampler, len(train_sampler), local_batch,
                           shuffle=True, seed=cfg.seed,
-                          num_workers=cfg.num_workers)
+                          num_workers=cfg.num_workers, rank=rank, world=world)
     val_loader = None
     try:
         val_ann = CocoPolyAnnotations(meta.annot_path("val"))
         val_sampler = sampler_cls(cfg, meta, val_ann, split="val",
                                   img_dir=meta.img_dir("val"))
-        val_loader = Loader(val_sampler, len(val_sampler), cfg.batch_size,
-                            shuffle=False, drop_last=False)
+        val_loader = Loader(val_sampler, len(val_sampler), local_batch,
+                            shuffle=False, drop_last=False, rank=rank,
+                            world=world)
     except FileNotFoundError:
         pass
 
     save_dir = os.path.join(cfg.save_dir, cfg.dataset, cfg.task, cfg.exp_id)
     os.makedirs(save_dir, exist_ok=True)
-    logger = Logger(save_dir, cfg.to_json())
+    logger = Logger(save_dir, cfg.to_json()) if rank == 0 else None
     try:
         trainer = Trainer(cfg, train_loader, val_loader, logger, device=device,
-                          dataset_meta=meta)
+                          dataset_meta=meta, group=group)
         trainer.fit(save_dir)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return trainer
+
+
+def _rank_main(rank, argv, address, world):
+    """Rank `rank` of `main`'s per-card launch."""
+    try:
+        main(argv + ["--distributed", "--coordinator_address", address,
+                     "--num_processes", str(world), "--process_id",
+                     str(rank)])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,21 +18,53 @@ class BatchNorm2d(nn.BatchNorm2d):
     as flax's BatchNorm does (nn.BatchNorm2d tracks the unbiased one).
     Training normalises with the biased batch statistics, as both do;
     momentum 0.1 here is flax's 0.9.  Parameter and buffer names are
-    nn.BatchNorm2d's, so state_dicts load unchanged."""
+    nn.BatchNorm2d's, so state_dicts load unchanged.
+
+    With `process_group` set (train/step.py sets it for a data-parallel
+    step), training takes the statistics of the global batch, every rank's
+    samples together, as the JAX package's mesh step does: the per-channel
+    count, sum and sum of squares in f32 are summed over the group by a
+    differentiable all_reduce, the variance is flax's E[x^2] - E[x]^2
+    (biased, at least 0), and the running statistics track the same
+    global values on every rank.  nn.SyncBatchNorm would track the
+    unbiased variance."""
+
+    process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._global_batch_norm(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        correction=0)
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
-                                    self.momentum)
-            self.running_var.lerp_(var.to(self.running_var.dtype),
-                                   self.momentum)
-            self.num_batches_tracked += 1
+            self._track(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    @torch.no_grad()
+    def _track(self, mean, var):
+        self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                self.momentum)
+        self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+        self.num_batches_tracked += 1
+
+    def _global_batch_norm(self, x):
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        xf = x.float()
+        local = torch.cat([xf.new_full((1,), x.numel() // c),
+                           xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+        total = all_reduce(local, group=self.process_group)
+        mean = total[1:c + 1] / total[0]
+        var = torch.clamp_min(total[c + 1:] / total[0] - mean * mean, 0.0)
+        self._track(mean.detach(), var.detach())
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        shift = self.bias - mean * scale
+        return (x * scale.to(x.dtype)[None, :, None, None]
+                + shift.to(x.dtype)[None, :, None, None])
 
 
 class ConvBN(nn.Sequential):

@@ -3,12 +3,14 @@ the JAX package's test.py):
 
     python -m centerpoly_tpu_torch.test polydet --dataset cityscapes \
         --data_dir <root> [--load_model model_best.pth] [--eval_batch B] \
-        [--device cpu]
+        [--infer_devices N] [--device cpu]
 
 Runs the detector over the val split on the card (`--device cpu` runs the
 port on the CPU), with per-stage time averages for `--eval_batch 1` and a
-prefetch thread feeding `run_batch` for larger batches; then the dataset's
-instance-AP eval: results.json, mask PNGs and txt manifests, and
+prefetch thread feeding `run_batch` for larger batches (over one replica
+on each of the first N cards with `--infer_devices N`, which raises when
+the host has fewer: the JAX CLI takes fewer without a word); then the
+dataset's instance-AP eval: results.json, mask PNGs and txt manifests, and
 instance_ap.json and gtInstances.json under <save_dir>/<dataset>/<task>/
 <exp_id>.  The GT is found by the frames' Cityscapes names
 (<stem>_leftImg8bit.png -> <stem>_gtFine_instanceIds.png), so frames stored
@@ -87,6 +89,7 @@ def setup(argv: list, device=None) -> tuple:
     from .configs import Config
     from .data import DATASETS, SAMPLERS, CocoPolyAnnotations
     from .infer.detector import create_detector
+    from .train.mesh import serving_devices
 
     cfg = Config.from_args(argv)
     if cfg.prefer_fast_inference_dcn():
@@ -104,7 +107,11 @@ def setup(argv: list, device=None) -> tuple:
     ann = CocoPolyAnnotations(meta.annot_path(split))
     sampler = sampler_cls(cfg, meta, ann, split=split,
                           img_dir=meta.img_dir(split))
-    return cfg, meta, ann, sampler, create_detector(cfg, device=device)
+    devices = None
+    if cfg.infer_devices > 1:
+        devices = serving_devices(cfg.infer_devices, device or "cuda")
+    return cfg, meta, ann, sampler, create_detector(cfg, device=device,
+                                                    devices=devices)
 
 
 def main(argv=None, device=None) -> dict:

@@ -48,16 +48,22 @@ class TrainState:
     """The model, its optimizer and the count of updates applied."""
 
     def __init__(self, model: torch.nn.Module, schedule: Callable[[int], float],
-                 grad_clip: Optional[float] = None):
+                 grad_clip: Optional[float] = None,
+                 grad_transform: Optional[Callable] = None):
+        """`grad_transform(model)`: runs on the gradients before the clip
+        and Adam (train/surgery.py::freeze_transform)."""
         self.model = model
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.grad_transform = grad_transform
         self.step = 0
         self.optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0),
                                           betas=(0.9, 0.999), eps=1e-8)
 
     def apply_gradients(self):
         """One Adam update from the gradients in each parameter's .grad."""
+        if self.grad_transform is not None:
+            self.grad_transform(self.model)
         if self.grad_clip is not None:
             clip_by_global_norm(self.model.parameters(), self.grad_clip)
         for group in self.optimizer.param_groups:
@@ -69,6 +75,7 @@ class TrainState:
 def create_train_state(model: torch.nn.Module, base_lr: float = 1.25e-4,
                        lr_steps: Sequence[int] = (90, 120),
                        steps_per_epoch: int = 1000,
-                       grad_clip: Optional[float] = None) -> TrainState:
+                       grad_clip: Optional[float] = None,
+                       grad_transform: Optional[Callable] = None) -> TrainState:
     return TrainState(model, lr_schedule(base_lr, lr_steps, steps_per_epoch),
-                      grad_clip)
+                      grad_clip, grad_transform)

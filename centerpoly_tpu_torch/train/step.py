@@ -1,7 +1,8 @@
 """Train and eval steps (the JAX package's train/step.py; reference
 base_trainer.run_epoch body, base_trainer.py:64-134): forward in train
 mode, head maps to NHWC f32 for the loss (step.py:65-69), backward, one
-Adam update.  PyTorch runs eagerly; there is nothing to compile.
+Adam update.  PyTorch runs eagerly; there is nothing to compile.  Over a
+process group the step is data parallel (`make_train_step`).
 """
 from __future__ import annotations
 
@@ -9,12 +10,16 @@ from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..losses import PolydetLossConfig, polydet_loss
+from ..models.layers import BatchNorm2d
+from . import mesh
 
 
 def loss_fn_for_task(task: str) -> Callable:
-    """task -> loss(outputs, batch, cfg) -> (loss, stats)."""
+    """task -> loss(outputs, batch, cfg, group=None) -> (loss, stats)."""
     if task == "polydet":
         return polydet_loss
     raise NotImplementedError(f"no train loss for task '{task}' in the port "
@@ -49,30 +54,121 @@ def _autocast(device: torch.device, dtype: torch.dtype):
 
 def make_train_step(loss_cfg: PolydetLossConfig,
                     loss_callable: Callable | None = None,
-                    dtype: torch.dtype = torch.float32) -> Callable:
+                    dtype: torch.dtype = torch.float32, group=None,
+                    grad_bucket: bool = False) -> Callable:
     """train_step(state, batch) -> (state, stats): `batch` from `to_device`;
     stats stay on the device.  `dtype` bfloat16 runs the model's forward
-    under autocast (parameters and Adam stay f32)."""
+    under autocast (parameters and Adam stay f32).
+
+    With a process group (train/mesh.py), each rank passes its share of
+    the global batch and the stats come out global, the same on every
+    rank.  By default the step is the JAX package's mesh step
+    (train/step.py:118-125 there): one function of the global batch.
+    BatchNorm takes the global batch's statistics (models/layers.py),
+    each loss denominator is summed over the group (losses/normalise.py),
+    and the model runs wrapped in DistributedDataParallel, whose gradient
+    mean of the world-scaled shares is the global loss's gradient.  Rank
+    0's parameters reach every rank when the model is wrapped, at the
+    first step.  `grad_bucket=True` is the JAX package's bucketed step
+    (step.py:86-116 there), the reference DataParallel's rule: per-rank
+    BatchNorm and losses, then one mean over the ranks of the flattened
+    gradients, of the new running statistics and of the stats.  The clip
+    and Adam then run alike on every rank."""
     task_loss = loss_callable or polydet_loss
+
+    def forward_backward(model, batch, loss_group, scale):
+        with _autocast(batch["input"].device, dtype):
+            outs = model(batch["input"])
+        loss, stats = task_loss(_nhwc_f32(outs), batch, loss_cfg,
+                                group=loss_group)
+        (loss if scale == 1.0 else loss * scale).backward()
+        return {k: v.detach() for k, v in stats.items()}
+
+    if group is None:
+        def train_step(state, batch):
+            model = state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            stats = forward_backward(model, batch, None, 1.0)
+            state.apply_gradients()
+            return state, stats
+
+        return train_step
+
+    world = dist.get_world_size(group)
+    wrapped = {}
+
+    def replica(model):
+        """The model as the step runs it, made once per model."""
+        if wrapped.get("module") is not model:
+            wrapped["module"] = model
+            if grad_bucket:
+                wrapped["run"] = mesh.replicate(model, group)
+            else:
+                for m in model.modules():
+                    if isinstance(m, BatchNorm2d):
+                        m.process_group = group
+                dev = next(model.parameters()).device
+                # broadcast_buffers off: the running statistics are global
+                # already (or averaged, bucketed), not rank 0's
+                wrapped["run"] = DistributedDataParallel(
+                    model, device_ids=[dev] if dev.type == "cuda" else None,
+                    process_group=group, broadcast_buffers=False,
+                    find_unused_parameters=True)
+        return wrapped["run"]
 
     def train_step(state, batch):
         model = state.model.train()
+        run = replica(model)
         state.optimizer.zero_grad(set_to_none=True)
-        with _autocast(batch["input"].device, dtype):
-            outs = model(batch["input"])
-        loss, stats = task_loss(_nhwc_f32(outs), batch, loss_cfg)
-        loss.backward()
+        if grad_bucket:
+            stats = forward_backward(run, batch, None, 1.0)
+            _mean_over(group, [p.grad for p in model.parameters()
+                               if p.grad is not None])
+            _mean_over(group, [b for n, b in model.named_buffers()
+                               if n.endswith(("running_mean", "running_var"))])
+        else:
+            stats = forward_backward(run, batch, group, float(world))
+        stats = _sum_stats(stats, group, 1.0 / world if grad_bucket else 1.0)
         state.apply_gradients()
-        return state, {k: v.detach() for k, v in stats.items()}
+        return state, stats
 
     return train_step
 
 
+@torch.no_grad()
+def _mean_over(group, tensors):
+    """Replace each tensor by its mean over the group's ranks, with one
+    all_reduce of them all flattened into an f32 vector."""
+    if not tensors:
+        return
+    vec = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(vec, group=group)
+    vec /= dist.get_world_size(group)
+    off = 0
+    for t in tensors:
+        t.copy_(vec[off:off + t.numel()].view_as(t))
+        off += t.numel()
+
+
+def _sum_stats(stats, group, scale):
+    """The stats summed over the group, times `scale`, with one
+    all_reduce."""
+    keys = sorted(stats)
+    vec = torch.stack([stats[k].float().reshape(()) for k in keys])
+    dist.all_reduce(vec, group=group)
+    return {k: vec[i] * scale for i, k in enumerate(keys)}
+
+
 def make_eval_step(loss_cfg: PolydetLossConfig,
                    loss_callable: Callable | None = None,
-                   dtype: torch.dtype = torch.float32) -> Callable:
+                   dtype: torch.dtype = torch.float32,
+                   group=None) -> Callable:
     """eval_step(state, batch) -> (head maps NHWC f32, stats): forward in
-    eval mode (running BatchNorm statistics) + loss, no gradient."""
+    eval mode (running BatchNorm statistics) + loss, no gradient.  With a
+    process group each rank passes its share of the global batch, gets
+    its own head maps back and the global batch's stats (the ranks'
+    numerators over the summed denominators, summed), as the JAX
+    package's sharded eval step computes them."""
     task_loss = loss_callable or polydet_loss
 
     @torch.no_grad()
@@ -80,7 +176,9 @@ def make_eval_step(loss_cfg: PolydetLossConfig,
         model = state.model.eval()
         with _autocast(batch["input"].device, dtype):
             outs = _nhwc_f32(model(batch["input"]))
-        _, stats = task_loss(outs, batch, loss_cfg)
+        _, stats = task_loss(outs, batch, loss_cfg, group=group)
+        if group is not None:
+            stats = _sum_stats(stats, group, 1.0)
         return outs[-1], stats
 
     return eval_step

@@ -8,6 +8,13 @@ val (trains/polydet.py:49-70).
 Validation decodes each val batch on the host, runs the dataset's
 instance-AP eval and gates model_best on AP; without GT instance images it
 gates on -val_loss, the JAX package's rule (trainer.py:291-292).
+
+Over a process group (train/mesh.py; one rank per card, each with its
+shard of the loaders) the steps are data parallel (train/step.py), and
+rank 0 alone logs and writes checkpoints.  Validation gathers the ranks'
+decoded val results to rank 0, which adds the samples no shard held this
+epoch and scores the whole val split once, as the JAX package's
+single-host mesh does; rank 0's model_best decision reaches every rank.
 """
 from __future__ import annotations
 
@@ -16,8 +23,10 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import Config
+from ..data.loader import stack_batch
 from ..infer.detector import polydet_post_process, resolve_device
 from ..losses import PolydetLossConfig
 from ..models import create_model
@@ -47,18 +56,23 @@ def loss_config_for(cfg: Config) -> PolydetLossConfig:
 
 class Trainer:
     """Polydet training on one device (the card unless `device` says
-    otherwise), from the seeded init."""
+    otherwise), from the seeded init; data parallel over `group`."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None,
                  logger: Optional[Logger] = None, device=None, *,
-                 dataset_meta=None):
+                 dataset_meta=None, group=None):
         """`dataset_meta`: the DatasetMeta whose `run_eval` scores the val
-        results (AP); without it validation gates on -val_loss."""
+        results (AP); without it validation gates on -val_loss.  `group`:
+        a process group whose every rank builds a Trainer on its own
+        device (train/mesh.py::make_mesh) with its shard of the loaders."""
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.meta = dataset_meta
         self.logger = logger
+        self.group = group
+        self.rank = 0 if group is None else dist.get_rank(group)
+        self.world = 1 if group is None else dist.get_world_size(group)
         self.device = resolve_device(device)
         if cfg.train_dtype not in ("float32", "bf16", "bfloat16"):
             raise ValueError(f"train_dtype={cfg.train_dtype!r}")
@@ -77,9 +91,12 @@ class Trainer:
             model, base_lr=cfg.lr, lr_steps=cfg.lr_step,
             steps_per_epoch=max(1, len(train_loader)), grad_clip=cfg.grad_clip)
         self.train_step = make_train_step(self.loss_cfg, loss_callable,
-                                          self.dtype)
+                                          self.dtype, group=group)
         self.eval_step = make_eval_step(self.loss_cfg, loss_callable,
-                                        self.dtype)
+                                        self.dtype, group=group)
+        # rank 0's eval of the val samples that no shard held
+        self.local_eval_step = make_eval_step(self.loss_cfg, loss_callable,
+                                              self.dtype)
         # -inf: the fallback gate metric -val_loss starts below -1 on a
         # fresh model
         self.best = float("-inf")
@@ -88,6 +105,8 @@ class Trainer:
         self._log(f"model {cfg.arch}: {n_params / 1e6:.2f}M parameters\n")
 
     def _log(self, txt: str):
+        if self.rank != 0:
+            return
         if self.logger is not None:
             self.logger.write(txt)
         else:
@@ -164,14 +183,31 @@ class Trainer:
         sums: Dict[str, float] = {}
         count = 0
         results = {}
-        for batch in self.val_loader:
-            bsz = batch["input"].shape[0]
-            outs, stats = self.eval_step(self.state, self.put(batch))
+
+        def add(step, batch, bsz):
+            nonlocal count
+            outs, stats = step(self.state, self.put(batch))
             for k, v in stats.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * bsz
             count += bsz
             if self.meta is not None:
                 results.update(self._decode_outputs(outs, batch) or {})
+
+        for batch in self.val_loader:
+            # the stats are the global batch's, of world x this shard
+            add(self.eval_step, batch, batch["input"].shape[0] * self.world)
+        if self.group is not None:
+            shards = [None] * self.world
+            dist.all_gather_object(shards, results, group=self.group)
+            if self.rank != 0:
+                return None, None
+            for r in shards:
+                results.update(r)
+            rest = self.val_loader.left_out
+            if len(rest):
+                add(self.local_eval_step, stack_batch(
+                    [self.val_loader.sampler(int(i)) for i in rest]),
+                    len(rest))
         avg = {k: s / count for k, s in sums.items()}
         self._log(f"val   {epoch} | " +
                   " ".join(f"{k} {v:.4f}" for k, v in avg.items()) + "\n")
@@ -210,16 +246,23 @@ class Trainer:
                           f"({e}); starting fresh\n")
         for epoch in range(self.start_epoch + 1, num_epochs + 1):
             self.run_epoch(epoch)
-            save_checkpoint(save_dir, "last", self.state, epoch)
+            if self.rank == 0:
+                save_checkpoint(save_dir, "last", self.state, epoch)
             if cfg.val_intervals > 0 and epoch % cfg.val_intervals == 0:
                 val_loss, ap = self.validate(epoch, save_dir)
                 # gate best on AP when eval ran, else on -loss
                 # (ref main.py:162-186)
                 metric = ap if ap is not None else (
                     -val_loss if val_loss is not None else None)
+                if self.group is not None:
+                    decision = [metric]
+                    dist.broadcast_object_list(decision, src=0,
+                                               group=self.group)
+                    metric = decision[0]
                 if metric is not None and metric > self.best:
                     self.best = metric
-                    save_checkpoint(save_dir, "best", self.state, epoch)
+                    if self.rank == 0:
+                        save_checkpoint(save_dir, "best", self.state, epoch)
         return self.state
 
 

@@ -81,7 +81,31 @@ line):
      (bf16, rowband:6) on that model_best with `--eval_batch` 1 and 4, 16
      rowband launches a forward; the host times of the rasterizer, the
      PNG codec, the matcher and `run_eval`; the two runs' results agree
-     (`results_agree`); and test.py's frames/s once warm (`eval_rates`).
+     (`results_agree`); and test.py's frames/s once warm (`eval_rates`);
+ 14. data parallelism (`phase_data_parallel`): (a) two ranks spawned on the
+     one card, over gloo (NCCL refuses two ranks on one device: a choice of
+     this harness, not the library's rule), run the global-batch step as
+     `Trainer` builds it (DDP, global BatchNorm statistics and loss
+     denominators), each on 2 samples of a global batch of 4 at 512x1024,
+     f32, `off`, TF32 off, against the one-process batch-4 step on the
+     card: loss rtol 1e-4; every gradient within 4x the one-process
+     step's own move under a seeded 1e-6 weight change (+1e-3) in
+     relative L2 (phase 9's rule for an ill-conditioned random net);
+     BatchNorm statistics within 1e-3 relative max; gradients, parameters
+     and statistics equal on both ranks; the parameters after Adam within
+     2 lr + 1e-6 beside them (Adam's first step moves a weight by ~lr
+     whatever the gradient: a sanity check); the same for the bucketed
+     step (`grad_bucket`) on a batch that tiles one sample; 16 `dcn_fwd` + 16 `dcn_bwd` launches
+     a rank a step (counts zeroed just before, read just after, in each
+     rank), step p50 and peak memory a rank; (b) with two or four cards,
+     `main` over NCCL with one process a card and test.py
+     `--infer_devices 2`, else one line saying it did not run; (c)
+     `run_batch` of 4 frames (bf16, rowband:6) over `[cuda:0, cuda:0]`,
+     two replicas on one card: 32 rowband launches (16 a replica); the
+     detections of one replica at the same batch of 2 (scores within
+     1e-3, box and vertices within 1 px), and of one replica's batch of 4
+     within `results_agree`'s bounds (bf16 at another batch runs other
+     convolution algorithms and DCN splits: 2.4e-3 in score measured).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -96,6 +120,7 @@ compares the two.
 from __future__ import annotations
 
 import collections
+import datetime
 import json
 import os
 import statistics
@@ -685,6 +710,12 @@ def profile_device(fn):
     the device as a span over the kernels it launched, under its own name;
     device rows that share a name with a host event are such spans and are
     left out, or they would count those kernels twice."""
+    wall_ms, events = profile_events(fn)
+    return wall_ms, device_rows(events)
+
+
+def profile_events(fn):
+    """(wall ms, torch.profiler's key_averages) of one run of `fn`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -694,15 +725,19 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
+    return wall_ms, prof.key_averages()
+
+
+def device_rows(events):
+    """profile_device's device rows of a profile's key_averages."""
+    import torch
     host = {e.key for e in events
             if e.device_type == torch.autograd.DeviceType.CPU}
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+    return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.self_device_time_total > 0 and e.key not in host),
                   reverse=True)
-    return wall_ms, rows
 
 
 def phase_profile(det, det_halo, frames):
@@ -932,7 +967,7 @@ def phase_train(root):
     for mode, kernel in TRAIN_MODES.items():
         zero_counts()
         t0 = time.perf_counter()
-        tr = tmain.main(train_argv(root, kernel))
+        tr = tmain.main(train_argv(root, kernel), device="cuda")
         torch.cuda.synchronize()
         counts = dict(dcn.launches)
         dt = time.perf_counter() - t0
@@ -1517,7 +1552,8 @@ def phase_hourglass_train(root):
 
     for arch, stacks, val in (("smallhourglass", 1, 1), ("hourglass", 2, 0)):
         t0 = time.perf_counter()
-        tr = count_free(lambda: tmain.main(train_argv(root, "off", arch, val)),
+        tr = count_free(lambda: tmain.main(train_argv(root, "off", arch, val),
+                                           device="cuda"),
                         f"main --arch {arch}")
         dt = time.perf_counter() - t0
         n_params = sum(p.numel() for p in tr.state.model.parameters())
@@ -1642,7 +1678,7 @@ def phase_eval(root, card):
     print(f"[eval] PNG fixture of {EVAL_FRAMES} 2048x1024 frames (train + "
           f"val, 16-bit GT) in {time.perf_counter() - t0:.2f} s")
     zero_counts()
-    tr = tmain.main(train_argv(eroot, "off") + ORACLE_ARGS)
+    tr = tmain.main(train_argv(eroot, "off") + ORACLE_ARGS, device="cuda")
     save_dir = os.path.join(eroot, "exp", "cityscapes", "polydet",
                             exp_id("dla_34", "off"))
     with open(os.path.join(save_dir, "instance_ap.json")) as f:
@@ -1706,21 +1742,23 @@ def phase_eval(root, card):
     eval_rates(argv, card)
 
 
-def results_agree(a, b):
-    """Check test.py's results at eval_batch 1 (`a`) and 4 (`b`): the same
-    frames and classes, K rows a frame in both, and each of a frame's
-    `EVAL_TOP` highest-scoring rows of `a` found in `b` in the same class,
-    its score within 0.01 and its box and vertices within `EVAL_CELL_PX`
-    (one output cell; bf16 nets at two batch sizes run other convolution
-    algorithms and DCN splits).  Returns the largest score and coordinate
+def results_agree(a, b, what=("eval_batch 1", "eval_batch 4")):
+    """Check two runs' results (by default test.py's at eval_batch 1, `a`,
+    and 4, `b`; `what` names the two runs): the same frames and classes,
+    K rows a frame in both, and each of a frame's `EVAL_TOP`
+    highest-scoring rows of `a` found in `b` in the same class, its score
+    within 0.01 and its box and vertices within `EVAL_CELL_PX` (one output
+    cell; bf16 nets at two batch sizes run other convolution algorithms
+    and DCN splits).  Returns the largest score and coordinate
     differences of the matched rows."""
-    check(a.keys() == b.keys(), "eval_batch 1 and 4 scored other frames")
+    check(a.keys() == b.keys(), f"{what[0]} and {what[1]} scored other "
+          f"frames")
     ds = dc = 0.0
     for img_id, per in a.items():
         other = b[img_id]
         check(per.keys() == other.keys()
               and sum(map(len, per.values())) == sum(map(len, other.values())),
-              f"frame {img_id}: other classes or row counts at eval_batch 4")
+              f"frame {img_id}: other classes or row counts at {what[1]}")
         rows = [(r[4], cls, np.asarray(r, np.float64))
                 for cls, v in per.items() for r in v]
         for score, cls, row in sorted(rows, key=lambda t: -t[0])[:EVAL_TOP]:
@@ -1729,7 +1767,7 @@ def results_agree(a, b):
             d_c = np.abs(np.delete(cand - row, [4, len(row) - 1], 1)).max(1)
             ok = (d_s <= 0.01) & (d_c <= EVAL_CELL_PX)
             check(ok.any(), f"frame {img_id}: a class {cls} row of score "
-                  f"{score:.4f} has no counterpart at eval_batch 4")
+                  f"{score:.4f} has no counterpart at {what[1]}")
             j = np.flatnonzero(ok)[np.argmin(d_c[ok])]
             ds, dc = max(ds, float(d_s[j])), max(dc, float(d_c[j]))
     return ds, dc
@@ -1762,6 +1800,345 @@ def eval_rates(argv, card):
               f"{statistics.median(rates):.3f} frames/s median "
               f"({min(rates):.3f}-{max(rates):.3f}) over {EVAL_PASSES} "
               f"passes of {len(sampler)} frames{stages} ({card})")
+
+
+DP_WORLD = 2        # ranks of phase 14 (a), sharing the one card
+DP_STEPS = 6        # timed data-parallel steps a rank, the first a warm-up
+
+
+def dp_config(kernel="off"):
+    """The training slice's config (512x1024, global batch 4, f32, the v2
+    loss), as `main` builds it from `train_argv`."""
+    from centerpoly_tpu_torch.configs import Config
+    return Config(input_h=512, input_w=1024, batch_size=TRAIN_BATCH,
+                  num_workers=0, rep="polar", poly_loss="l1+iou",
+                  poly_order=True, lr=2e-4, dcn_kernel=kernel)
+
+
+def dp_sampler(cfg, root):
+    from centerpoly_tpu_torch.data import (CityscapesMeta,
+                                           CocoPolyAnnotations,
+                                           PolydetSampler)
+    meta = CityscapesMeta(root)
+    return PolydetSampler(cfg, meta, CocoPolyAnnotations(
+        meta.annot_path("train")), img_dir=meta.img_dir("train"))
+
+
+def dp_seeded_state(cfg, grad_bucket=False, group=None):
+    """The trainer's seeded init on the card (channels_last), its Adam,
+    and a train step (data parallel over `group` when one is given)."""
+    import torch
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.train import state as tstate
+    from centerpoly_tpu_torch.train.step import make_train_step
+    from centerpoly_tpu_torch.train.trainer import loss_config_for
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        model = create_model(cfg.arch, cfg.heads, cfg.head_conv,
+                             dcn_kernel=cfg.dcn_kernel)
+    model.to("cuda", memory_format=torch.channels_last)
+    st = tstate.create_train_state(model, base_lr=cfg.lr)
+    return st, make_train_step(loss_config_for(cfg), group=group,
+                               grad_bucket=grad_bucket)
+
+
+def dp_perturb(model):
+    """Every weight of `model` moved by a seeded relative 1e-6: the step
+    from there measures the net's own sensitivity, the floor under a
+    comparison of two gradients."""
+    import torch
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen,
+                                          device=p.device))
+
+
+def dp_step(state, step, host):
+    """One step of `host` (numpy) on the card with the launch counts zeroed
+    just before and read just after: the loss, every gradient, parameter
+    and BatchNorm statistic on the host, and the launches."""
+    import torch
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.train.step import to_device
+    batch = to_device(host, torch.device("cuda", torch.cuda.current_device()))
+    zero_counts()
+    state, stats = step(state, batch)
+    torch.cuda.synchronize()
+    return {"loss": float(stats["loss"]), "launches": dict(dcn.launches),
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in state.model.named_parameters()
+                      if p.grad is not None},
+            "params": {n: p.detach().cpu()
+                       for n, p in state.model.named_parameters()},
+            "bufs": {n: b.detach().cpu() for n, b in
+                     state.model.named_buffers()
+                     if n.endswith(("running_mean", "running_var"))}}
+
+
+def dp_grad_errors(got, ref, moved):
+    """Per gradient (relative L2 distance of `got` to `ref` past its limit
+    4 floor + 1e-3, the distance, the floor, name), the one closest to
+    its limit first; the floor is `moved`'s distance to `ref`, the step
+    after a 1e-6 weight change.  Tensors whose exact gradient is 0 (DCN
+    biases before train-mode BatchNorm: norm under 1e-6 of the largest)
+    are left out, as in phase 9."""
+    check(got.keys() == ref.keys() == moved.keys(),
+          "gradients of other tensors")
+    norm = {n: g.double().norm().item() for n, g in ref.items()}
+    top = max(norm.values())
+    out = []
+    for n, r in ref.items():
+        if norm[n] < 1e-6 * top:
+            continue
+        err = (got[n].double() - r.double()).norm().item() / norm[n]
+        floor = (moved[n].double() - r.double()).norm().item() / norm[n]
+        out.append((err - 4 * floor - 1e-3, err, floor, n))
+    return sorted(out, reverse=True)
+
+
+def _dp_rank(rank, port, root, host, tiled, out):
+    """One rank of phase 14 (a): gloo over localhost, on card 0 beside the
+    other rank.  The global step as `Trainer` builds it, on this rank's
+    half of the global batch; the bucketed step on its half of the tiled
+    batch; then DP_STEPS timed global steps.  Writes its results to
+    `out`.<rank>."""
+    import torch
+    import torch.distributed as dist
+    from centerpoly_tpu_torch.data import Loader
+    from centerpoly_tpu_torch.train.mesh import shard_batch
+    from centerpoly_tpu_torch.train.step import to_device
+    from centerpoly_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    # a rank that waits this long in a collective fails the phase
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=DP_WORLD,
+                            timeout=datetime.timedelta(seconds=180))
+    try:
+        cfg = dp_config()
+        sampler = dp_sampler(cfg, root)
+        loader = Loader(sampler, len(sampler), TRAIN_BATCH // DP_WORLD,
+                        seed=cfg.seed, rank=rank, world=DP_WORLD)
+        tr = Trainer(cfg, loader, device="cuda:0", group=dist.group.WORLD)
+        shard = shard_batch(host, rank, DP_WORLD)
+        res = {"global": dp_step(tr.state, tr.train_step, shard)}
+        st, step = dp_seeded_state(cfg, grad_bucket=True,
+                                   group=dist.group.WORLD)
+        res["bucket"] = dp_step(st, step, shard_batch(tiled, rank, DP_WORLD))
+        del st, step
+        # timed with the defaults a training run gets (phase 10's): f32
+        # matmuls in full f32, cuDNN convolutions in TF32
+        torch.backends.cudnn.allow_tf32 = True
+        batch = to_device(shard, "cuda:0")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.state, _ = tr.train_step(tr.state, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        res["p50_ms"] = statistics.median(times[1:])
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        def one_step():
+            tr.state, _ = tr.train_step(tr.state, batch)
+        wall_ms, events = profile_events(one_step)
+        # the host's time in the collectives: gloo's records of each call
+        res["profile"] = (wall_ms, device_rows(events), sorted(
+            ((e.cpu_time_total / 1e3, e.count, e.key) for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and "gloo:" in e.key), reverse=True))
+        torch.save(res, f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_data_parallel(root, card):
+    """Phase 14: the data-parallel slice (train/mesh.py).  (a) two gloo
+    ranks sharing the card run the global-batch step, each on half of a
+    global batch of 4, against the one-process batch-4 step, and the
+    bucketed step on a tiled batch; (b) with two cards or more, `main`
+    over NCCL, one process a card, and test.py --infer_devices 2; (c)
+    run_batch over two replicas on the one card against one replica.
+    Returns {"dp": the launches by kernel that rank 0 counted in its
+    global step (every rank's and mode's are checked equal to 16 + 16),
+    "sharded": rowband launches of a sharded run_batch}."""
+    import torch
+    from centerpoly_tpu_torch.data import Loader
+    from centerpoly_tpu_torch.train import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dp_config()
+    sampler = dp_sampler(cfg, root)
+    batch = next(iter(Loader(sampler, len(sampler), TRAIN_BATCH,
+                             shuffle=False)))
+    host = {k: v for k, v in batch.items() if k != "meta"}
+    tiled = {k: np.repeat(v[:1], TRAIN_BATCH, 0) for k, v in host.items()}
+    refs, moved = {}, {}
+    for mode, b in (("global", host), ("bucket", tiled)):
+        st, step = dp_seeded_state(cfg)
+        refs[mode] = dp_step(st, step, b)
+        st, step = dp_seeded_state(cfg)
+        dp_perturb(st.model)
+        moved[mode] = dp_step(st, step, b)["grads"]
+        del st, step
+    torch.cuda.empty_cache()
+
+    out, port = os.path.join(root, "dp_rank"), mesh.free_port()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_dp_rank, args=(port, root, host, tiled, out),
+                                nprocs=DP_WORLD)
+    dt = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}") for r in range(DP_WORLD)]
+    want = dict.fromkeys(refs["global"]["launches"], 0)
+    want.update(exact=16, bwd_exact=16)
+    for mode, ref in refs.items():
+        check(ref["launches"] == want, f"one-process {mode} step launched "
+              f"{ref['launches']}, not {want}")
+        for r, res in enumerate(ranks):
+            got = res[mode]
+            d_loss = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+            dp = max(((got["params"][n] - p).abs().max().item(), n)
+                     for n, p in ref["params"].items())
+            bn = max((rel_max(got["bufs"][n], b), n)
+                     for n, b in ref["bufs"].items())
+            ge = dp_grad_errors(got["grads"], ref["grads"], moved[mode])
+            worst = max(ge, key=lambda t: t[1])
+            same = all(torch.equal(got[kind][n], ranks[0][mode][kind][n])
+                       for kind in ("grads", "params", "bufs")
+                       for n in got[kind])
+            print(f"[dp] {mode} step, rank {r} of {DP_WORLD} (gloo, one "
+                  f"card, {TRAIN_BATCH // DP_WORLD} samples) against one "
+                  f"process at batch {TRAIN_BATCH}: loss {got['loss']:.6f} "
+                  f"vs {ref['loss']:.6f} (rel {d_loss:.2e}); gradients rel "
+                  f"L2 over {len(ge)} tensors: largest {worst[1]:.2e} "
+                  f"(floor {worst[2]:.2e}, {worst[3]}), closest to its "
+                  f"limit {ge[0][1]:.2e} (floor {ge[0][2]:.2e}, {ge[0][3]}); "
+                  f"params after Adam max |diff| {dp[0]:.2e} ({dp[1]}), "
+                  f"BatchNorm stats "
+                  f"rel_max {bn[0]:.2e} ({bn[1]}); launches "
+                  f"{ {k: v for k, v in got['launches'].items() if v} }")
+            check(got["launches"] == want, f"rank {r} {mode} step launched "
+                  f"{got['launches']}, not {want}")
+            check(d_loss <= 1e-4 and dp[0] <= 2 * cfg.lr + 1e-6,
+                  f"rank {r} {mode} step disagrees with one process")
+            check(ge[0][0] <= 0 and sum("conv_offset_mask" in t[3]
+                                        for t in ge) == 32,
+                  f"rank {r} {mode} step's gradient {ge[0][3]} is "
+                  f"{ge[0][1]:.2e} from one process's, over 4x its floor "
+                  f"{ge[0][2]:.2e} + 1e-3")
+            check(bn[0] <= 1e-3,
+                  f"rank {r} BatchNorm statistics disagree ({bn[1]})")
+            check(same, f"rank {r} {mode} step left other weights or "
+                  f"statistics than rank 0")
+    for r, res in enumerate(ranks):
+        print(f"[dp] rank {r}: global step p50 {res['p50_ms']:.2f} ms over "
+              f"{DP_STEPS - 1} steps (batch {TRAIN_BATCH // DP_WORLD} a "
+              f"rank, 2 ranks on one card: the collectives' and the "
+              f"replica's overhead, not scaling), peak memory "
+              f"{res['peak_gib']:.2f} GiB ({card})")
+        wall_ms, rows, coll = res["profile"]
+        busy = sum(r[0] for r in rows)
+        print(f"[dp-profile] rank {r}, one global step: wall {wall_ms:.2f} "
+              f"ms, device busy {busy:.2f} ms ({100 * busy / wall_ms:.1f} "
+              f"%); host time in gloo collectives (calls): " + ", ".join(
+                  f"{k} {ms:.2f} ms ({n})" for ms, n, k in coll))
+        for ms, n, key in rows[:6]:
+            print(f"[dp-profile] rank {r} {ms:8.3f} ms {n:4d} calls  "
+                  f"{key[:90]}")
+    print(f"[dp] (a) 2 spawned ranks, 2 + {DP_STEPS} steps each, in "
+          f"{dt:.1f} s")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2 and TRAIN_BATCH % n_cards == 0:
+        from centerpoly_tpu_torch import main as tmain, test as ttest
+        t0 = time.perf_counter()
+        ret = tmain.main(train_argv(root, "off", val_intervals=0)
+                         + ["--exp_id", "dp_main"])
+        save_dir = os.path.join(root, "exp", "cityscapes", "polydet",
+                                "dp_main")
+        check(ret is None and os.path.isfile(os.path.join(
+            save_dir, "model_last.pth")), "main over the cards wrote no "
+            "model_last")
+        print(f"[dp] (b) main over {n_cards} cards (NCCL, one process a "
+              f"card, batch {TRAIN_BATCH // n_cards} each) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        out = ttest.main(["polydet", "--data_dir", os.path.join(root, "eval"),
+                          "--save_dir", os.path.join(root, "exp"),
+                          "--exp_id", "dp_test", "--eval_batch", "4",
+                          "--infer_devices", "2"])
+        check(out["frames"] == EVAL_FRAMES, "test.py --infer_devices 2 "
+              "scored other frames")
+        print(f"[dp] (b) test.py --infer_devices 2: {out['frames']} frames "
+              f"in {out['seconds']:.3f} s")
+    else:
+        print(f"[dp] (b) not run: {n_cards} card(s); main over NCCL and "
+              f"test.py --infer_devices 2 need two or four")
+    return {"dp": ranks[0]["global"]["launches"],
+            "sharded": phase_sharded_run_batch(card)}
+
+
+def phase_sharded_run_batch(card):
+    """Phase 14 (c): run_batch of 4 frames (bf16, rowband:6) over two
+    replicas on the one card: 16 rowband launches a replica; each
+    replica's 2 frames within 1e-3 in score and 1 px of one replica's
+    run_batch of the same 2 frames (the same batch, so the same
+    algorithms), and the 4 frames within `results_agree`'s bounds of one
+    replica's batch of 4.  Returns the launches."""
+    import torch
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.models import create_model
+
+    cfg = Config()
+    cfg.prefer_fast_inference_dcn()
+    sd = random_state_dict(create_model(cfg.arch, cfg.heads, cfg.head_conv),
+                           SEED)
+    frames = [np.random.RandomState(SEED + i).randint(
+        0, 256, (*FRAME_HW, 3), dtype=np.uint8) for i in range(4)]
+    one = create_detector(cfg, sd)
+    two = create_detector(cfg, sd, devices=["cuda:0", "cuda:0"])
+    ref4 = one.run_batch(frames)
+    ref2 = one.run_batch(frames[:2]) + one.run_batch(frames[2:])
+    zero_counts()
+    got = two.run_batch(frames)
+    torch.cuda.synchronize()
+    counts = dict(dcn.launches)
+    check(counts["rowband"] == 32 and sum(counts.values()) == 32,
+          f"expected 16 rowband launches a replica, got {counts}")
+
+    def by_frame(out):
+        return {i: r["results"] for i, r in enumerate(out)}
+    ds, dc = results_agree(by_frame(ref2), by_frame(got),
+                           ("one replica, 2 frames a call", "two replicas"))
+    check(ds <= 1e-3 and dc <= 1.0, f"two replicas moved a score by {ds} "
+          f"or a vertex by {dc} px from one replica at the same batch")
+    ds4, dc4 = results_agree(by_frame(ref4), by_frame(got),
+                             ("one replica, 4 frames", "two replicas"))
+    times = {}
+    for label, det in (("one replica", one), ("two replicas", two)):
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det.run_batch(frames)
+            ts.append(1e3 * (time.perf_counter() - t0))
+        times[label] = statistics.median(ts[1:])
+    print(f"[dp] (c) run_batch of 4 over [cuda:0, cuda:0]: {counts['rowband']}"
+          f" rowband launches (16 a replica); the top {EVAL_TOP} rows of "
+          f"each frame against one replica at the same batch of 2: score "
+          f"{ds:.2e}, box and vertices {dc:.3f} px; against one replica's "
+          f"batch of 4: {ds4:.2e}, {dc4:.3f} px; p50 "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+          + f" for 4 frames ({card})")
+    return counts["rowband"]
 
 
 def main() -> int:
@@ -1809,6 +2186,7 @@ def main() -> int:
         phase_hourglass_infer(frames)
         phase_hourglass_train(root)
         phase_eval(root, card)
+        dp = phase_data_parallel(root, card)
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],
@@ -1820,6 +2198,10 @@ def main() -> int:
                 "f32_step_plain_ms": f32_step[mode]["plain_ms"],
                 "f32_step_bound_ms": f32_bound, "f32_step_bound_by": f32_by}
                for mode in FWD_CLAMPS]
+    # phase 14: launches a rank a data-parallel step, and of a run_batch
+    # over two replicas
+    kernels[0]["dp_rank_step_launches"] = dp["dp"]["exact"]
+    kernels[1]["sharded_run_batch_launches"] = dp["sharded"]
     kernels += [{"name": f"dcn_bwd[{mode}]", "route": "cuda",
                  "source": SOURCES["dcn_bwd"],
                  "replaces": REPLACES[f"dcn_bwd[{mode}]"],
@@ -1832,6 +2214,7 @@ def main() -> int:
                  "eager_ms": per_step[mode]["eager_ms"],
                  "f32_core_bound_ms": bwd_f32_bound}
                 for mode in BWD_CLAMPS]
+    kernels[3]["dp_rank_step_launches"] = dp["dp"]["bwd_exact"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

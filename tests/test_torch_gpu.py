@@ -14,6 +14,8 @@ differences of neighbouring samples, so their relative error is that of
 the samples over the size of the difference) in f32; 3e-2 in bf16.  The
 same tolerances hold in every clamp mode (exact, rowband:R, halo:R).
 """
+import datetime
+
 import numpy as np
 import pytest
 import torch
@@ -444,3 +446,159 @@ def test_eval_cli_on_card(cuda, tmp_path, monkeypatch, eval_batch):
     assert dcn.launches["rowband"] == before["rowband"] + 16 * 4 // eval_batch
     assert out["frames"] == 4 and out["ap"] is not None
     assert np.isfinite(out["ap"]["allAp"])
+
+
+# -- data parallelism on the card ---------------------------------------------
+
+DP_LR = 2e-4
+DP_LOSS = dict(rep="polar", poly_loss="l1+iou", poly_order=True)
+
+
+def _dp_host_batch(root):
+    """A global batch of 4 at 64x128 from the rectangle fixture."""
+    from centerpoly_tpu_torch.data import (CityscapesMeta, CocoPolyAnnotations,
+                                           Loader, PolydetSampler)
+    from centerpoly_tpu_torch.data.fixture import write_rect_fixture
+    write_rect_fixture(root, 4, 0, 128, 256)
+    cfg = Config(input_h=64, input_w=128, head_conv=16, **DP_LOSS)
+    meta = CityscapesMeta(root)
+    sampler = PolydetSampler(cfg, meta, CocoPolyAnnotations(
+        meta.annot_path("train")), img_dir=meta.img_dir("train"))
+    batch = next(iter(Loader(sampler, 4, 4, shuffle=False)))
+    return {k: v for k, v in batch.items() if k != "meta"}
+
+
+def _dp_step(sd, batch, group=None, perturb=False):
+    """One f32 step of the narrow DLA-34 on the card from `sd` (`perturb`:
+    every weight moved by a seeded relative 1e-6 first): (loss,
+    parameters, BatchNorm statistics, launches, gradients) on the host."""
+    from centerpoly_tpu_torch.losses import PolydetLossConfig
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.train import state as tstate
+    from centerpoly_tpu_torch.train.step import make_train_step, to_device
+    model = create_model("dla_34", {"hm": 8, "poly": 32, "pseudo_depth": 1,
+                                    "reg": 2}, 16)
+    model.load_state_dict(sd)
+    if perturb:
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
+    model.to("cuda:0", memory_format=torch.channels_last)
+    st = tstate.create_train_state(model, base_lr=DP_LR)
+    step = make_train_step(PolydetLossConfig(**DP_LOSS), group=group)
+    before = dict(dcn.launches)
+    st, stats = step(st, to_device(batch, "cuda:0"))
+    torch.cuda.synchronize()
+    return (float(stats["loss"]),
+            {n: p.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))},
+            {k: dcn.launches[k] - before[k] for k in before},
+            {n: p.grad.cpu().double() for n, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def _dp_rank(rank, port, sd, batch, out):
+    """A rank of the two-ranks-on-one-card gloo group."""
+    import torch.distributed as dist
+    from centerpoly_tpu_torch.train.mesh import shard_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        torch.save(_dp_step(sd, shard_batch(batch, rank, 2),
+                            dist.group.WORLD), f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _grad_errors(got, ref, floor_ref):
+    """Per gradient: (relative L2 distance of `got` to `ref`, the floor:
+    that of `floor_ref`, the step after a 1e-6 weight change); tensors
+    whose exact gradient is 0 (DCN biases before train-mode BatchNorm,
+    norm under 1e-6 of the largest) left out."""
+    assert got.keys() == ref.keys() == floor_ref.keys()
+    top = max(g.norm().item() for g in ref.values())
+    out = {}
+    for n, r in ref.items():
+        norm = r.norm().item()
+        if norm >= 1e-6 * top:
+            out[n] = ((got[n] - r).norm().item() / norm,
+                      (floor_ref[n] - r).norm().item() / norm)
+    return out
+
+
+def test_two_ranks_on_one_card_match_one_process(cuda, tmp_path):
+    """The global-batch data-parallel step in two gloo ranks that share the
+    card, one sample pair each, against the one-process batch-4 step on
+    the card (TF32 off): loss rtol 1e-4; every gradient within 4x the
+    one-process step's own move under a 1e-6 weight change (+1e-3) in
+    relative L2 (a random net in train mode is ill-conditioned,
+    tests/test_torch_train.py); BatchNorm statistics within 1e-3 relative
+    max; gradients and statistics equal on both ranks; parameters after
+    Adam within 2 lr + 1e-6 (Adam's first step moves a weight by ~lr
+    sign(g) whatever the gradient: a sanity check only); 16 + 16 DCN
+    launches on each rank."""
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.train import mesh
+    batch = _dp_host_batch(str(tmp_path))
+    torch.manual_seed(0)
+    sd = create_model("dla_34", {"hm": 8, "poly": 32, "pseudo_depth": 1,
+                                 "reg": 2}, 16).state_dict()
+    loss, params, bufs, _, grads = _dp_step(sd, batch)
+    moved = _dp_step(sd, batch, perturb=True)[4]
+    out, port = str(tmp_path / "rank"), mesh.free_port()
+    torch.multiprocessing.spawn(_dp_rank, args=(port, sd, batch, out),
+                                nprocs=2)
+    ranks = [torch.load(f"{out}.{r}") for r in range(2)]
+    for r_loss, r_params, r_bufs, launches, r_grads in ranks:
+        assert launches["exact"] == 16 and launches["bwd_exact"] == 16
+        assert abs(r_loss - loss) <= 1e-4 * abs(loss)
+        errs = _grad_errors(r_grads, grads, moved)
+        assert sum("conv_offset_mask" in n for n in errs) == 32
+        for n, (err, floor) in errs.items():
+            assert err <= 4 * floor + 1e-3, (n, err, floor)
+        for n, g in r_grads.items():
+            assert torch.equal(g, ranks[0][4][n]), n
+        for n, p in params.items():
+            assert (r_params[n] - p).abs().max().item() <= 2 * DP_LR + 1e-6, n
+        for n, b in bufs.items():
+            assert _rel(r_bufs[n], b) <= 1e-3, n
+            assert torch.equal(r_bufs[n], ranks[0][2][n]), n
+
+
+def _top_rows(results, n):
+    """The n highest-scoring detection rows of a frame, with their class."""
+    rows = [(j, np.asarray(r, np.float64)) for j, v in results.items()
+            for r in v]
+    return sorted(rows, key=lambda t: -t[1][4])[:n]
+
+
+def test_run_batch_over_two_replicas_on_one_card(cuda):
+    """run_batch of 3 frames (bf16, rowband:6) over [cuda:0, cuda:0], the
+    last frame padded once: 16 rowband launches a replica, and each
+    frame's 8 best rows of one-device run_batch found in the same class,
+    score within 1e-3, box and vertices within 1 px (a replica's batch of
+    2 may run other convolution algorithms than one batch of 3)."""
+    cfg = Config(input_h=64, input_w=128, head_conv=32, K=16,
+                 dcn_kernel="rowband:6")
+    torch.manual_seed(0)
+    one = create_detector(cfg)
+    two = create_detector(cfg, one.model.state_dict(),
+                          devices=["cuda:0", "cuda:0"])
+    frames = [np.random.RandomState(s).randint(0, 256, (128, 256, 3),
+                                               np.uint8) for s in range(3)]
+    ref = one.run_batch(frames)
+    before = dcn.launches["rowband"]
+    got = two.run_batch(frames)
+    assert dcn.launches["rowband"] == before + 32
+    assert len(got) == 3
+    for g, r in zip(got, ref):
+        cand = _top_rows(g["results"], 16)
+        for j, row in _top_rows(r["results"], 8):
+            assert any(cj == j and abs(c[4] - row[4]) <= 1e-3
+                       and np.abs(np.delete(c - row, [4, len(row) - 1])
+                                  ).max() <= 1.0 for cj, c in cand), row

@@ -20,9 +20,9 @@ The random network is ill-conditioned: when every weight moves by a
 relative 1e-6, the port's own gradients move by 1-3 % (relative L2), and
 at offset gain 1 its loss by ~5e-4 and the depth loss by 1 %; JAX and
 PyTorch differ by about that in f32.  So the test measures that floor
-(`_self_sensitivity`) and holds each loss part to 4x it (+1e-5 relative),
-each gradient, in relative L2, to 4x it (+1e-3), and the BatchNorm
-statistics as above.
+(`torch_port_common.self_sensitivity`) and holds each loss part to 4x it
+(+1e-5 relative), each gradient, in relative L2, to 4x it (+1e-3), and
+the BatchNorm statistics as above.
 """
 import json
 import os
@@ -35,7 +35,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from torch_port_common import HEADS, jax_dla_variables, port_model
+from torch_port_common import (HEADS, jax_dla_variables, port_model,
+                               self_sensitivity)
 
 from centerpoly_tpu.losses import PolydetLossConfig as JLossConfig
 from centerpoly_tpu.models import layers as jlayers
@@ -46,7 +47,7 @@ from centerpoly_tpu_torch.configs import Config
 from centerpoly_tpu_torch.data import (CityscapesMeta, CocoPolyAnnotations,
                                        Loader, PolydetSampler)
 from centerpoly_tpu_torch.data.fixture import write_rect_fixture
-from centerpoly_tpu_torch.losses import PolydetLossConfig, polydet_loss
+from centerpoly_tpu_torch.losses import PolydetLossConfig
 from centerpoly_tpu_torch.models.layers import BatchNorm2d
 from centerpoly_tpu_torch.train import checkpoint, state as tstate
 from centerpoly_tpu_torch.train.step import make_train_step, to_device
@@ -137,44 +138,6 @@ def jax_step():
     return jmake_train_step(JLossConfig(**LOSS))
 
 
-def _self_sensitivity(net, batch):
-    """How far the port's own loss parts and gradients move when every
-    weight moves by a relative 1e-6 (seeded): the conditioning of the
-    random network, the floor under any comparison of two
-    implementations.  Returns ({stat: |change|}, {parameter: relative L2
-    change of its gradient}); parameters whose exact gradient is 0 (DCN
-    biases feeding train-mode BatchNorm) or that no path reads are left
-    out."""
-    sd = {k: v.clone() for k, v in net.state_dict().items()}
-    loss_cfg = PolydetLossConfig(**LOSS)
-
-    def run(gen=None):
-        net.load_state_dict(sd)
-        if gen is not None:
-            with torch.no_grad():
-                for p in net.parameters():
-                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
-        net.train().zero_grad(set_to_none=True)
-        out = [{k: v.permute(0, 2, 3, 1) for k, v in o.items()}
-               for o in net(batch["input"])]
-        loss, stats = polydet_loss(out, batch, loss_cfg)
-        loss.backward()
-        return ({k: float(v) for k, v in stats.items()},
-                {n: p.grad.clone() for n, p in net.named_parameters()
-                 if p.grad is not None},
-                {n: b.clone() for n, b in net.named_buffers()
-                 if n.endswith(("running_mean", "running_var"))})
-
-    s0, g0, b0 = run()
-    s1, g1, b1 = run(torch.Generator().manual_seed(0))
-    net.load_state_dict(sd)
-    net.zero_grad(set_to_none=True)
-    return ({k: abs(s1[k] - s0[k]) for k in s0},
-            {n: float((g1[n] - g0[n]).norm() / g0[n].norm()) for n in g0
-             if not (".conv.bias" in n and "ida" in n)},
-            {n: float((b1[n] - b0[n]).abs().max()) for n in b0})
-
-
 def _zero_offset_convs(variables):
     """Offset convs at zero (kernel and bias): the DCNv2 init."""
     def zero(path, a):
@@ -227,7 +190,8 @@ def _check_train_step(model, variables, jax_step, fixture_batch,
     # the port's
     net = port_model(variables, HEADS, HEAD_CONV, dcn_kernel=dcn_kernel)
     batch = to_device(fixture_batch, "cpu")
-    stat_floor, grad_floor, buf_floor = _self_sensitivity(net, batch)
+    stat_floor, grad_floor, buf_floor = self_sensitivity(
+        net, batch, PolydetLossConfig(**LOSS))
     st = tstate.create_train_state(net, base_lr=LR)
     st, stats = make_train_step(PolydetLossConfig(**LOSS))(st, batch)
     for k in jstats:

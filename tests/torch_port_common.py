@@ -81,3 +81,52 @@ def port_model(variables, heads, head_conv: int, dcn_kernel: str = "auto"):
     model = create_model("dla_34", heads, head_conv, dcn_kernel=dcn_kernel)
     load_weights(model, state_dict_from_jax(variables), strict=True)
     return model.eval()
+
+
+def self_sensitivity(net, batch, loss_cfg):
+    """How far the port's own loss parts and gradients move when every
+    weight moves by a relative 1e-6 (seeded): the conditioning of the
+    random network, the floor under any comparison of two
+    implementations.  `batch` is one batch, or a list of batches whose
+    gradients are averaged (the bucketed data-parallel step's rule:
+    BatchNorm and losses per batch).  Returns ({stat: |change|},
+    {parameter: relative L2 change of its gradient}, {BatchNorm
+    statistic: max |change|}); parameters whose exact gradient is 0 (DCN
+    biases feeding train-mode BatchNorm) or that no path reads are left
+    out."""
+    import torch
+
+    from centerpoly_tpu_torch.losses import polydet_loss
+
+    batches = batch if isinstance(batch, list) else [batch]
+    sd = {k: v.clone() for k, v in net.state_dict().items()}
+
+    def run(gen=None):
+        net.load_state_dict(sd)
+        if gen is not None:
+            with torch.no_grad():
+                for p in net.parameters():
+                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=gen))
+        net.train().zero_grad(set_to_none=True)
+        stats = {}
+        for b in batches:
+            out = [{k: v.permute(0, 2, 3, 1) for k, v in o.items()}
+                   for o in net(b["input"])]
+            loss, parts = polydet_loss(out, b, loss_cfg)
+            (loss / len(batches)).backward()
+            for k, v in parts.items():
+                stats[k] = stats.get(k, 0.0) + float(v) / len(batches)
+        return (stats,
+                {n: p.grad.clone() for n, p in net.named_parameters()
+                 if p.grad is not None},
+                {n: b.clone() for n, b in net.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))})
+
+    s0, g0, b0 = run()
+    s1, g1, b1 = run(torch.Generator().manual_seed(0))
+    net.load_state_dict(sd)
+    net.zero_grad(set_to_none=True)
+    return ({k: abs(s1[k] - s0[k]) for k in s0},
+            {n: float((g1[n] - g0[n]).norm() / g0[n].norm()) for n in g0
+             if not (".conv.bias" in n and "ida" in n)},
+            {n: float((b1[n] - b0[n]).abs().max()) for n in b0})
