@@ -30,6 +30,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_port_common  # noqa: F401  (caps torch's threads a worker)
+
 from centerpoly_tpu.configs import Config as JConfig
 from centerpoly_tpu.data.coco_poly import CocoPolyAnnotations as JAnnotations
 from centerpoly_tpu.data.datasets import CityscapesMeta as JMeta

@@ -27,6 +27,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_common  # noqa: F401  (caps torch's threads a worker)
+
 from centerpoly_tpu.kernels.dcn_halo import (deform_conv2d_halo,
                                              deform_conv2d_halo_ref)
 from centerpoly_tpu.kernels.dcn_rowband import deform_conv2d_rowband

@@ -10,6 +10,8 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_port_common  # noqa: F401  (caps torch's threads a worker)
+
 from centerpoly_tpu.geometry import affine as jaff
 from centerpoly_tpu.infer.detector import \
     polydet_post_process as jax_post_process

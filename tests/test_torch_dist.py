@@ -264,14 +264,16 @@ def jax_side():
 
 def _floor(sd, batches):
     """The port's own sensitivity floor on `batches` (one batch, or a list
-    whose gradients are averaged): torch_port_common.self_sensitivity."""
-    from torch_port_common import self_sensitivity
+    whose gradients are averaged): torch_port_common.self_sensitivity,
+    on the host's threads (`torch_port_common.threads`)."""
+    from torch_port_common import HOST_THREADS, self_sensitivity, threads
     if isinstance(batches, list):
         batches = [to_device(b, "cpu") for b in batches]
     else:
         batches = to_device(batches, "cpu")
-    return self_sensitivity(_port_net(sd), batches,
-                            PolydetLossConfig(**LOSS))[1]
+    with threads(HOST_THREADS):
+        return self_sensitivity(_port_net(sd), batches,
+                                PolydetLossConfig(**LOSS))[1]
 
 
 def _check_close_grads(grads, ref, rtol=1e-5):
@@ -323,16 +325,15 @@ def _same_on_every_rank(out):
 
 def _one_process_step(sd, host, threads=None):
     """The port's one-process step of `host`: (stats, parameters and
-    BatchNorm statistics after it, gradients).  `threads=1` computes in
-    a rank's arithmetic (the ranks run one thread each)."""
+    BatchNorm statistics after it, gradients), on the host's threads
+    (`torch_port_common.threads`).  `threads=1` computes in a rank's
+    arithmetic (the ranks run one thread each)."""
+    from torch_port_common import HOST_THREADS
+    from torch_port_common import threads as using
     st = tstate.create_train_state(_port_net(sd), base_lr=LR)
-    before = torch.get_num_threads()
-    torch.set_num_threads(threads or before)
-    try:
+    with using(threads or HOST_THREADS):
         st, stats = make_train_step(PolydetLossConfig(**LOSS))(
             st, to_device(host, "cpu"))
-    finally:
-        torch.set_num_threads(before)
     after = {**dict(st.model.named_parameters()),
              **dict(st.model.named_buffers())}
     return ({k: float(v) for k, v in stats.items()},

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_port_common  # noqa: F401  (caps torch's threads a worker)
+
 from centerpoly_tpu.data.datasets import CityscapesMeta as JCityscapes
 from centerpoly_tpu.eval import harness as jharness
 from centerpoly_tpu.eval import instance_eval as jeval

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_port_common  # noqa: F401  (caps torch's threads a worker)
+
 from centerpoly_tpu.configs import Config as JConfig
 from centerpoly_tpu.data.coco_poly import CocoPolyAnnotations as JAnnotations
 from centerpoly_tpu.data.datasets import CityscapesMeta as JCityscapes

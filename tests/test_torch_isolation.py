@@ -8,6 +8,8 @@ import sys
 
 import pytest
 
+import torch_port_common  # noqa: F401  (caps torch's threads a worker)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "centerpoly_tpu_torch")
 

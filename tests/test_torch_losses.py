@@ -14,6 +14,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_port_common  # noqa: F401  (caps torch's threads a worker)
+
 from centerpoly_tpu.geometry import polygon as jpoly
 from centerpoly_tpu.losses import focal as jfocal
 from centerpoly_tpu.losses import poly as jpl

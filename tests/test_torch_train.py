@@ -35,8 +35,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from torch_port_common import (HEADS, jax_dla_variables, port_model,
-                               self_sensitivity)
+from torch_port_common import (HEADS, HOST_THREADS, jax_dla_variables,
+                               port_model, self_sensitivity, threads)
 
 from centerpoly_tpu.losses import PolydetLossConfig as JLossConfig
 from centerpoly_tpu.models import layers as jlayers
@@ -187,13 +187,14 @@ def _check_train_step(model, variables, jax_step, fixture_batch,
     jafter = state_dict_from_jax(jax.tree.map(np.asarray, {
         "params": jst.params, "batch_stats": jst.batch_stats}))
 
-    # the port's
+    # the port's, on the host's threads (torch_port_common.threads)
     net = port_model(variables, HEADS, HEAD_CONV, dcn_kernel=dcn_kernel)
     batch = to_device(fixture_batch, "cpu")
-    stat_floor, grad_floor, buf_floor = self_sensitivity(
-        net, batch, PolydetLossConfig(**LOSS))
-    st = tstate.create_train_state(net, base_lr=LR)
-    st, stats = make_train_step(PolydetLossConfig(**LOSS))(st, batch)
+    with threads(HOST_THREADS):
+        stat_floor, grad_floor, buf_floor = self_sensitivity(
+            net, batch, PolydetLossConfig(**LOSS))
+        st = tstate.create_train_state(net, base_lr=LR)
+        st, stats = make_train_step(PolydetLossConfig(**LOSS))(st, batch)
     for k in jstats:
         ref = float(jstats[k])
         assert abs(float(stats[k]) - ref) <= 4 * stat_floor[k] + 1e-5 * abs(

@@ -7,9 +7,52 @@ port by centerpoly_tpu_torch.weights.state_dict_from_jax.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
+import torch
 import jax
 import jax.numpy as jnp
+
+
+# torch's threads before `share_cores`: one a core of the host
+HOST_THREADS = torch.get_num_threads()
+
+
+def share_cores() -> int:
+    """Cap torch's intra-op threads at this process's share of the cores.
+
+    Each pytest-xdist worker's torch would otherwise start one OpenMP
+    thread a core, so six workers keep 48 spinning threads (beside XLA's
+    pools) on 8 cores, and a port test that takes 27 s alone takes over
+    600 s in the suite.  Every test_torch_* module imports this module,
+    so the cap holds in every worker before its first test."""
+    cores = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+             else os.cpu_count() or 1)
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    n = max(1, cores // workers)
+    torch.set_num_threads(n)
+    return n
+
+
+share_cores()
+
+
+@contextlib.contextmanager
+def threads(n: int):
+    """torch on `n` threads inside the block.  A train step's f32 result
+    depends on the thread count (oneDNN splits its sums by thread), by as
+    much as the train-step comparisons' bounds: those tests run the
+    port's side on `HOST_THREADS`, the arithmetic their bounds were set
+    on."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
 
 HEADS = {"hm": 8, "poly": 32, "pseudo_depth": 1, "reg": 2}
 
