@@ -15,15 +15,18 @@ instance AP of the decoded val results (with GT maps for the heads the
 count divides it, `main` runs one process per card (NCCL on localhost),
 each loading batch_size / cards, as the JAX package meshes every device.
 `--distributed` joins a group launched from outside instead: with
-`--coordinator_address host:port --num_processes N --process_id i` on
-each process (one host: each rank takes the card of its process id), or
-with no triple under torchrun, which also spans several hosts:
+`--coordinator_address host:port --num_processes N --process_id p` on
+each of N hosts, as the JAX package counts them, one process a host;
+on a host with n cards that process starts n ranks, one a card, and
+rank k is global rank p*n + k of N*n (`mesh.host_ranks`).  Or with no
+triple under torchrun, which starts every rank itself:
 
     torchrun --nproc_per_node 4 -m centerpoly_tpu_torch.main polydet \
         --distributed --data_dir <root> --batch_size 32 ...
 
 `--device cpu` (or any named device) keeps one process; with
-`--distributed` it joins a gloo group.
+`--distributed` it joins a gloo group, and the triple then counts
+processes, each one rank.
 """
 from __future__ import annotations
 
@@ -34,13 +37,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .train import mesh
+
 
 def main(argv=None, device=None):
     """Train from `argv` (sys.argv by default).  Returns the Trainer, or
     None when the run was spread over one spawned process per card."""
     from .configs import Config
     from .data import DATASETS, SAMPLERS, CocoPolyAnnotations, Loader
-    from .train import mesh
     from .train.trainer import Trainer
     from .utils.logger import Logger
 
@@ -50,14 +54,24 @@ def main(argv=None, device=None):
         device = argv[i + 1]
         del argv[i:i + 2]
     cfg = Config.from_args(argv)
-    if not cfg.distributed and device is None:
-        n = torch.cuda.device_count()
-        if n > 1 and cfg.batch_size % n == 0:
+    n = torch.cuda.device_count()
+    if device is None and n > 0:
+        hosts = None
+        if cfg.distributed and cfg.coordinator_address:
+            # the JAX package's triple counts processes, each meshing
+            # every device of its host (its train/mesh.py:22-56)
+            hosts, host = cfg.num_processes, cfg.process_id
+        elif not cfg.distributed and n > 1 and cfg.batch_size % n == 0:
             # the JAX Trainer meshes every device when the batch divides
-            # (trainer.py:83-85): here one process per card over NCCL
+            # (trainer.py:83-85)
+            argv = argv + ["--distributed", "--coordinator_address",
+                           f"localhost:{mesh.free_port()}"]
+            hosts, host = 1, 0
+        if hosts is not None:
+            # one rank a card over NCCL
+            mesh.host_ranks(hosts, host, n)
             torch.multiprocessing.spawn(
-                _rank_main, args=(argv, f"localhost:{mesh.free_port()}", n),
-                nprocs=n)
+                _host_rank_main, args=(argv, hosts, host, n), nprocs=n)
             return None
     np.random.seed(cfg.seed)
 
@@ -111,12 +125,14 @@ def main(argv=None, device=None):
     return trainer
 
 
-def _rank_main(rank, argv, address, world):
-    """Rank `rank` of `main`'s per-card launch."""
+def _host_rank_main(k, argv, num_processes, process_id, n):
+    """Rank k of the n on process `process_id`'s host: global rank
+    process_id * n + k of num_processes * n, on card k."""
+    rank, world = mesh.host_ranks(num_processes, process_id, n)[k]
+    os.environ["LOCAL_RANK"], os.environ["LOCAL_WORLD_SIZE"] = str(k), str(n)
     try:
-        main(argv + ["--distributed", "--coordinator_address", address,
-                     "--num_processes", str(world), "--process_id",
-                     str(rank)])
+        main(argv + ["--num_processes", str(world), "--process_id",
+                     str(rank)], device="cuda")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

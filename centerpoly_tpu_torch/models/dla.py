@@ -5,7 +5,10 @@ Behavioral reference: src/lib/models/networks/pose_dla_dcn.py — DLA trunk
 IDAUp where every projection and merge node is a DCNv2 DeformConv
 (:347-413), and a grouped transposed-conv upsample with bilinear init
 (:335-344, 372-375).  Module and parameter names are the reference's, so
-its state_dict loads as it is.  NCHW throughout; the detector keeps the
+its state_dict loads as it is.  `plain_upsample=True` is the JAX
+package's DCN-free `dlav0_34` (its models/dla.py:165-190): every IDAUp
+projection and node is a 3x3 ConvBN (`proj_i.{0,1}`, `node_i.{0,1}`), so
+no DCN kernel runs.  NCHW throughout; the detector keeps the
 model in channels_last memory, so the NHWC view the DCN kernel takes is
 free.
 """
@@ -144,19 +147,21 @@ class DepthwiseUpsample(nn.ConvTranspose2d):
 class IDAUp(nn.Module):
     """Iterative deep aggregation step (ref pose_dla_dcn.py:362-387): for
     layers[1:], project to `out_channels` (DCN), upsample, and merge with
-    the previous layer through a DCN node."""
+    the previous layer through a DCN node; with `plain`, a 3x3 ConvBN in
+    place of each DCN block (dlav0)."""
 
     def __init__(self, out_channels: int, channels: Sequence[int],
-                 up_factors: Sequence[int], dcn_kernel: str = "auto"):
+                 up_factors: Sequence[int], dcn_kernel: str = "auto",
+                 plain: bool = False):
         super().__init__()
         self.n = len(channels)
+        block = ConvBN if plain else (
+            lambda cin, cout: DeformConvBlock(cin, cout, dcn_kernel))
         for i in range(1, self.n):
-            setattr(self, f"proj_{i}", DeformConvBlock(
-                channels[i], out_channels, dcn_kernel))
+            setattr(self, f"proj_{i}", block(channels[i], out_channels))
             setattr(self, f"up_{i}", DepthwiseUpsample(
                 out_channels, int(up_factors[i])))
-            setattr(self, f"node_{i}", DeformConvBlock(
-                out_channels, out_channels, dcn_kernel))
+            setattr(self, f"node_{i}", block(out_channels, out_channels))
 
     def forward(self, layers: List[torch.Tensor]) -> List[torch.Tensor]:
         out = [layers[0]]
@@ -169,7 +174,8 @@ class IDAUp(nn.Module):
 class DLAUp(nn.Module):
     """Aggregate the deepest levels upward (ref pose_dla_dcn.py:390-413)."""
 
-    def __init__(self, channels: Sequence[int], dcn_kernel: str = "auto"):
+    def __init__(self, channels: Sequence[int], dcn_kernel: str = "auto",
+                 plain: bool = False):
         super().__init__()
         n = len(channels)
         scales = [2 ** i for i in range(n)]
@@ -178,7 +184,7 @@ class DLAUp(nn.Module):
             j = n - i - 2  # aggregate layers[j:] onto layers[j]'s scale
             setattr(self, f"ida_{i}", IDAUp(
                 channels[j], in_channels[j:],
-                [s // scales[j] for s in scales[j:]], dcn_kernel))
+                [s // scales[j] for s in scales[j:]], dcn_kernel, plain))
             scales[j + 1:] = [scales[j]] * (n - j - 1)
             in_channels[j + 1:] = [channels[j]] * (n - j - 1)
         self.n = n
@@ -195,20 +201,22 @@ class DLAUp(nn.Module):
 class DLASeg(nn.Module):
     """DLA-34 + DLAUp + final IDAUp + heads at stride `down_ratio`
     (ref pose_dla_dcn.py:427-482).  `forward` returns a one-element list of
-    NCHW head maps, the reference model contract."""
+    NCHW head maps, the reference model contract.  `plain_upsample`:
+    dlav0, no DCNv2 node."""
 
     def __init__(self, heads: Dict[str, int], down_ratio: int = 4,
                  last_level: int = 5, head_conv: int = 256,
-                 dcn_kernel: str = "auto"):
+                 dcn_kernel: str = "auto", plain_upsample: bool = False):
         super().__init__()
         self.first_level = int(np.log2(down_ratio))
         self.last_level = last_level
         self.base = DLA()
         channels = CHANNELS[self.first_level:]
-        self.dla_up = DLAUp(channels, dcn_kernel)
+        self.dla_up = DLAUp(channels, dcn_kernel, plain_upsample)
         n = last_level - self.first_level
         self.ida_up = IDAUp(channels[0], channels[:n],
-                            [2 ** i for i in range(n)], dcn_kernel)
+                            [2 ** i for i in range(n)], dcn_kernel,
+                            plain_upsample)
         self.heads = dict(heads)
         for name, module in head_stack(heads, channels[0], head_conv).items():
             self.add_module(name, module)

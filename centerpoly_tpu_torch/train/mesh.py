@@ -15,12 +15,14 @@ DistributedDataParallel, so a step computes what JAX's mesh step computes.
   shard_batch             this rank's slice of a host batch
   replicate               rank 0's parameters and buffers on every rank
   serving_devices         the first n cards, one replica each (run_batch)
+  host_ranks              the ranks of one process of the explicit triple
 
-A rank finds its card from torchrun's LOCAL_RANK and LOCAL_WORLD_SIZE.
-Without them it takes its global rank as its index on the host, so the
-explicit --coordinator_address / --num_processes / --process_id triple
-alone serves one host; on several hosts launch with torchrun, or set
-LOCAL_RANK and LOCAL_WORLD_SIZE for each process.
+A rank finds its card from LOCAL_RANK and LOCAL_WORLD_SIZE, which
+torchrun sets, and `main` sets for the ranks it starts.  The explicit
+--coordinator_address / --num_processes N / --process_id p triple counts
+processes, one a host, as the JAX package's does: `main` starts one rank
+a card of the host (`host_ranks`).  Without LOCAL_RANK a rank takes its
+global rank as its index on the host, which is right on one host only.
 """
 from __future__ import annotations
 
@@ -69,6 +71,20 @@ def initialize_distributed(coordinator_address: str = "",
         raise ValueError(f"--distributed needs {', '.join(missing)} (or all "
                          f"three left out under torchrun)")
     return dist.get_world_size() > 1
+
+
+def host_ranks(num_processes: int, process_id: int, n_local: int
+               ) -> list[tuple[int, int]]:
+    """(global rank, world size) of each of the `n_local` ranks, one a
+    card, that process `process_id` of `num_processes` runs: the JAX
+    package's process meshes every device of its host, so its host's
+    ranks are process_id * n_local + k of num_processes * n_local, and a
+    global batch splits over them as JAX's does over the processes."""
+    if not 0 <= process_id < num_processes or n_local < 1:
+        raise ValueError(f"process {process_id} of {num_processes} with "
+                         f"{n_local} cards")
+    world = num_processes * n_local
+    return [(process_id * n_local + k, world) for k in range(n_local)]
 
 
 def local_rank() -> int:

@@ -1,13 +1,16 @@
 """Carry weights into the port.
 
-* `state_dict_from_jax`: the JAX package's DLA-34 or hourglass variables
-  ({"params", "batch_stats"} as nested dicts of arrays) -> this package's
-  state_dict.  It inverts the JAX package's torch-import name map and
+* `state_dict_from_jax`: the JAX package's variables ({"params",
+  "batch_stats"} as nested dicts of arrays) of any arch of the registry
+  -> this package's state_dict.  It inverts the JAX package's
+  torch-import name map of that arch (train/torch_import.py) and its
   kinds: conv kernels HWIO -> OIHW, the depthwise upsample kernel flipped
-  back into a ConvTranspose2d weight, BatchNorm scale/bias/mean/var.
-  For the hourglass archs it walks the port model's own keys through a
-  copy of that name map (`hourglass_name_map`), so a module missing on
-  either side raises.
+  back into a grouped ConvTranspose2d weight, the ResNet deconv kernel
+  flipped back into a dense one, BatchNorm scale/bias/mean/var.  DLA-34,
+  dlav0_34 and the ResNets map each JAX leaf to its torch key
+  (`_torch_key`, `_resnet_key`); the hourglass archs walk the port model's
+  own keys through a copy of that name map (`hourglass_name_map`), so a
+  module missing on either side raises.
 * `load_reference_checkpoint`: a reference `.pth` ({'epoch',
   'state_dict', ...}, `module.` prefixes stripped); the model keeps the
   reference's names, so its keys load as they are.
@@ -17,7 +20,8 @@
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from functools import partial
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -40,10 +44,13 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _torch_key(flax_key: str) -> tuple[str, str]:
+def _torch_key(flax_key: str, plain: bool = False) -> tuple[str, str]:
     """Flat JAX DLASeg key -> (torch key, kind), kind in conv | deconv_dw |
     raw.  E.g. base/level3/tree1/tree1/ConvBN_0/Conv_0/kernel ->
-    base.level3.tree1.tree1.conv1.weight (conv)."""
+    base.level3.tree1.tree1.conv1.weight (conv).  `plain`: dlav0, whose
+    IDAUp projections and nodes are ConvBNs (proj_1/Conv_0 ->
+    proj_1.0, proj_1/BatchNorm_0 -> proj_1.1), where the JAX package's
+    dla_name_map knows only the DCN form (conv, actf.0)."""
     *mods, leaf = flax_key.split("/")
     if mods[0] == "heads":  # heads/hm_conv/kernel -> hm.0.weight
         head, _, part = mods[1].rpartition("_")
@@ -58,8 +65,9 @@ def _torch_key(flax_key: str) -> tuple[str, str]:
                 out.append(f"{'bn' if bn else 'conv'}{int(parent[-1]) + 1}")
             elif parent == "root":
                 out.append("bn" if bn else "conv")
-            elif parent.startswith(("proj_", "node_")):   # DeformConv actf
-                out.append("actf.0")
+            elif parent.startswith(("proj_", "node_")):
+                # DeformConv's actf, or dlav0's ConvBN Sequential
+                out.append(str(int(bn)) if plain else "actf.0")
             else:   # flat Sequential of (conv, bn, relu) triples
                 m = re.fullmatch(r"level[01]_(\d+)", parent)
                 out.append(str((3 * int(m[1]) if m else 0) + bn))
@@ -189,18 +197,71 @@ def _hourglass_model(params: Mapping) -> HourglassNet:
         return HourglassNet(heads, n_stacks, dims, modules, head_conv)
 
 
+def _resnet_key(flax_key: str, dcn: bool) -> tuple[str, str]:
+    """Flat JAX ResNetDet key -> (torch key, kind): the inverse of the JAX
+    package's resnet_name_map / resdcn_name_map (train/torch_import.py:
+    252-331).  The deconv stages are one Sequential, 3 modules a stage
+    ([up, BN, ReLU], msra_resnet.py) or with `dcn` 6 ([DCN, BN, ReLU, up,
+    BN, ReLU], resnet_dcn.py:216-243)."""
+    *mods, leaf = flax_key.split("/")
+    if mods[0] == "heads":  # heads/hm_conv/kernel -> hm.0.weight
+        return _torch_key(flax_key)
+    bn_leaf = _BN_LEAF.get(leaf) if mods[-1] == "BatchNorm_0" or (
+        mods[0].startswith("dcn_bn_")) else None
+    stride = 6 if dcn else 3
+    if mods[0] == "stem":
+        torch_mod = "bn1" if bn_leaf else "conv1"
+    elif m := re.fullmatch(r"layer(\d)_(\d+)", mods[0]):
+        block = f"layer{m[1]}.{m[2]}"
+        if mods[1] == "downsample":
+            torch_mod = f"{block}.downsample.{1 if bn_leaf else 0}"
+        else:
+            j = int(mods[1].rpartition("_")[2]) + 1     # ConvBN_j
+            torch_mod = f"{block}.{'bn' if bn_leaf else 'conv'}{j}"
+    elif m := re.fullmatch(r"deconv_(\d+)", mods[0]):
+        up = stride * int(m[1]) + (3 if dcn else 0)
+        if not bn_leaf:
+            return f"deconv_layers.{up}.weight", "deconv"
+        torch_mod = f"deconv_layers.{up + 1}"
+    elif m := re.fullmatch(r"dcn_bn_(\d+)", mods[0]):
+        torch_mod = f"deconv_layers.{stride * int(m[1]) + 1}"
+    elif m := re.fullmatch(r"dcn_(\d+)", mods[0]):
+        # DCNv2: weight, bias, conv_offset_mask.{weight,bias}
+        name = ".".join(["deconv_layers", str(stride * int(m[1])), *mods[1:],
+                         "weight" if leaf == "kernel" else leaf])
+        return name, "conv" if leaf == "kernel" else "raw"
+    else:
+        raise KeyError(f"JAX leaf {flax_key} has no place in a ResNetDet")
+    if bn_leaf:
+        return f"{torch_mod}.{bn_leaf}", "raw"
+    return f"{torch_mod}.weight", "conv"
+
+
+# arch family -> flat JAX key -> (torch key, kind); the hourglass archs
+# take `hourglass_name_map` over the port model's own keys instead
+_JAX_TO_TORCH: Dict[str, Callable[[str], tuple[str, str]]] = {
+    "dla": _torch_key,
+    "dlav0": partial(_torch_key, plain=True),
+    "res": partial(_resnet_key, dcn=False),
+    "resdcn": partial(_resnet_key, dcn=True),
+}
+
+
 def _to_torch(v, kind: str) -> torch.Tensor:
     v = np.asarray(v, dtype=np.float32)
     if kind == "conv":                         # HWIO -> OIHW
         v = np.transpose(v, (3, 2, 0, 1))
     elif kind == "deconv_dw":                  # flipped (k,k,1,C) -> (C,1,k,k)
         v = np.transpose(v[::-1, ::-1, 0, :], (2, 0, 1))[:, None]
+    elif kind == "deconv":                     # flipped (k,k,I,O) -> (I,O,k,k)
+        v = np.transpose(v[::-1, ::-1], (2, 3, 0, 1))
     return torch.from_numpy(np.array(v, order="C"))    # a writable copy
 
 
 def state_dict_from_jax(variables: Mapping, arch: str = "dla_34"
                         ) -> Dict[str, torch.Tensor]:
-    """JAX package variables -> this package's state_dict (f32 tensors)."""
+    """JAX package variables of `arch` -> this package's state_dict (f32
+    tensors)."""
     flat = _flatten(variables["params"])
     flat.update(_flatten(variables.get("batch_stats", {})))
     if arch in HOURGLASS_STACKS:
@@ -221,11 +282,12 @@ def state_dict_from_jax(variables: Mapping, arch: str = "dla_34"
             raise KeyError(f"JAX leaves with no port key: "
                            f"{sorted(set(flat) - used)[:8]}")
         return sd
-    if arch != "dla_34":
-        raise NotImplementedError(f"arch {arch!r} is not ported")
+    to_torch = _JAX_TO_TORCH.get(arch.partition("_")[0])
+    if to_torch is None:
+        raise KeyError(f"unknown arch '{arch}'")
     sd = {}
     for fk, v in flat.items():
-        tk, kind = _torch_key(fk)
+        tk, kind = to_torch(fk)
         sd[tk] = _to_torch(v, kind)
     return sd
 

@@ -12,14 +12,17 @@ through `centerpoly_tpu_torch.main` on a synthetic 2048x1024 fixture
 (batch 4, f32, the paper's v2 loss); each in the DCN modes `off` (exact),
 `rowband:R` and `halo:4`.  Then the same two paths on smallhourglass and
 Hourglass-104 (2 stacks), pure convolution: no DCNv2 node, so no kernel
-of csrc/ runs there.  Phases (any failure exits non-zero, with no result
-line):
+of csrc/ runs there; and on resdcn_18 and resdcn_101, whose 3 DCNv2
+nodes a forward run the same kernels (resdcn_101's first at Cin 2048),
+with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Phases
+(any failure exits non-zero, with no result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
   2. build csrc/dcn_fwd.cu and csrc/dcn_bwd.cu with nvcc (sm_90a), one
      process each, and print ptxas's report;
   3. the forward kernel against `deform_conv2d_ref` at the 7 DCN node
-     shapes of the path and at the card tests' tile shapes (split K, one
+     shapes of the path, at resdcn_101's (16, 32, 2048, 256) node (batch
+     1 and 4) and at the card tests' tile shapes (split K, one
      pixel, Cout 300, f32 at batch 4), exact, rowband:6 and halo:4, f32
      (TF32 off; relative max 1e-4: the kernel's 3xTF32 products keep f32
      accuracy, summed in another order) and bf16 (relative max 2e-2: the
@@ -45,7 +48,8 @@ line):
   7. device time by kernel and the device's busy share (torch.profiler),
      and the busy share of `run` and `run_stream` in halo:4;
   8. csrc/dcn_bwd.cu against the plain backward at the 7 node shapes,
-     batch 2 (batch 4 in phase 10), and at the card tests' tile shapes (one pixel, Cout 300,
+     batch 2 (batch 4 in phase 10), at resdcn_101's 2048-channel node,
+     batch 1 and 4, and at the card tests' tile shapes (one pixel, Cout 300,
      Cin 3 / Cout 5, many dW splits), exact, rowband:4 and halo:4, f32 and
      bf16; two calls bit-equal but for dx; offsets at +-R on each axis,
      beyond R and all zero (tolerances and tie rules in
@@ -105,7 +109,23 @@ line):
      detections of one replica at the same batch of 2 (scores within
      1e-3, box and vertices within 1 px), and of one replica's batch of 4
      within `results_agree`'s bounds (bf16 at another batch runs other
-     convolution algorithms and DCN splits: 2.4e-3 in score measured).
+     convolution algorithms and DCN splits: 2.4e-3 in score measured);
+ 15. resdcn_18 at full width (`phase_resdcn18`; before it,
+     `phase_resdcn_node_times` times both kernels at resdcn_101's
+     2048-channel node): a 2048x1024 uint8 frame, K=128, bf16, rowband:6,
+     `run` and `run_batch` with 3 `dcn_fwd` launches a forward (counts
+     zeroed just before, read just after), `run` p50, the device's busy
+     share of `run` by kind; f32 heads on the
+     card against the CPU port (relative max < 2e-3); `main --arch
+     resdcn_18` for one epoch on the phase 9 fixture (batch 4, f32, `off`,
+     3 + 3 launches a step), the loss falling, step p50, peak memory and
+     one profiled step; `train_vs_cpu` in `off`;
+ 16. resdcn_101 (`phase_resdcn101`): one f32 forward on the card against
+     the CPU port (3 launches), `main --arch resdcn_101` for an epoch of 2
+     steps at batch 4 with its step p50, peak memory and one profiled
+     step; then res_18,
+     res_101 and dlav0_34, one f32 forward each against the CPU port, no
+     DCN launch.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -137,6 +157,15 @@ NODE_SHAPES = {(16, 32, 512, 256): 1, (32, 64, 256, 256): 1,
                (32, 64, 256, 128): 2, (64, 128, 128, 128): 2,
                (64, 128, 128, 64): 4, (32, 64, 256, 64): 1,
                (128, 256, 64, 64): 5}
+# the 3 DCN nodes of resdcn_18 and resdcn_101 at the same input (one before
+# each deconv stage, resnet_dcn.py): the first reads the trunk's stride-32
+# output, 512 channels wide in ResNet-18 and 2048 in ResNet-101 (4x the
+# input width of DLA-34's widest node)
+RESDCN101_NODE = (16, 32, 2048, 256)
+RESDCN_NODES = {"resdcn_18": [(16, 32, 512, 256), (32, 64, 256, 128),
+                              (64, 128, 128, 64)],
+                "resdcn_101": [RESDCN101_NODE, (32, 64, 256, 128),
+                               (64, 128, 128, 64)]}
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 495e12    # H100 SXM dense TF32 (the f32 forward's 3xTF32)
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
@@ -345,6 +374,9 @@ def phase_kernel_vs_plain():
     torch.backends.cuda.matmul.allow_tf32 = False
     tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     cases = [(shape, 1, dtype) for shape in NODE_SHAPES for dtype in tols]
+    # resdcn_101's first node: batch 1 (inference) and 4 (training)
+    cases += [(RESDCN101_NODE, b, dtype) for b in (1, TRAIN_BATCH)
+              for dtype in tols]
     cases += [(shape[1:], shape[0], getattr(torch, dt))
               for shape, dts in TILE_CASES.items() for dt in dts]
     errs = dict.fromkeys(FWD_CLAMPS, 0.0)
@@ -362,7 +394,8 @@ def phase_kernel_vs_plain():
                   f"{diff:.3e} rel_max {rel:.3e} (tol {tol:g})")
             check(np.isfinite(rel) and rel < tol,
                   f"kernel disagrees at b{batch} {shape} {mode} {dtype}")
-            if dtype == torch.bfloat16 and batch == 1 and shape in NODE_SHAPES:
+            if dtype == torch.bfloat16 and batch == 1 and (
+                    shape in NODE_SHAPES or shape == RESDCN101_NODE):
                 errs[mode] = max(errs[mode], diff)
         del args
     # determinism: split K (16x32) and unsplit (128x256), both types
@@ -379,15 +412,16 @@ def phase_kernel_vs_plain():
     return errs
 
 
-def run_counted(fn, key):
+def run_counted(fn, key, nodes=16):
     """Run one path with the launch counts zeroed just before and read
-    just after."""
+    just after: one `key` launch a DCN node of the net (DLA-34 16,
+    resdcn 3), none of another kind."""
     from centerpoly_tpu_torch.kernels import dcn
     zero_counts()
     out = fn()
     counts = dict(dcn.launches)
-    check(counts[key] == 16 and sum(counts.values()) == 16,
-          f"expected 16 {key} launches, got {counts}")
+    check(counts[key] == nodes and sum(counts.values()) == nodes,
+          f"expected {nodes} {key} launches, got {counts}")
     return out, counts[key]
 
 
@@ -476,19 +510,23 @@ def phase_slice():
                              "exact": launches_exact}
 
 
-def check_heads(tag, ref, got32, got16):
+def check_heads(tag, ref, got32, got16=None):
     """f32 heads on the card within 2e-3 relative max of the CPU port's;
-    bf16 heads finite."""
+    bf16 heads, where given, finite."""
     import torch
     for k in ref:
         scale = ref[k].abs().max().item()
         r32 = (got32[k].float().cpu() - ref[k]).abs().max().item() / scale
-        r16 = (got16[k].float().cpu() - ref[k]).abs().max().item() / scale
-        print(f"[{tag}] head {k}: f32 card vs CPU rel_max {r32:.3e}; "
-              f"bf16 card vs CPU rel_max {r16:.3e}")
-        check(r32 < 2e-3, f"f32 head {k} disagrees with the CPU port ({tag})")
-        check(bool(torch.isfinite(got16[k]).all()),
-              f"bf16 head {k} not finite ({tag})")
+        line = (f"[{tag}] head {k}: f32 card vs CPU rel_max {r32:.3e} (max "
+                f"|head| {scale:.2f})")
+        if got16 is not None:
+            r16 = (got16[k].float().cpu() - ref[k]).abs().max().item() / scale
+            line += f"; bf16 card vs CPU rel_max {r16:.3e}"
+            check(bool(torch.isfinite(got16[k]).all()),
+                  f"bf16 head {k} not finite ({tag})")
+        print(line)
+        check(np.isfinite(r32) and r32 < 2e-3,
+              f"f32 head {k} disagrees with the CPU port ({tag})")
 
 
 def phase_halo_slice(sd, frames, root):
@@ -823,15 +861,19 @@ def phase_bwd_vs_plain():
     torch.backends.cuda.matmul.allow_tf32 = False
     tols = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (3e-2, 3e-2)}
     errs = dict.fromkeys(BWD_CLAMPS, 0.0)
-    for i, shape in enumerate(NODE_SHAPES):
+    # the node shapes at batch 2; resdcn_101's first node at batch 1 and 4
+    cases = [(shape, 2) for shape in NODE_SHAPES]
+    cases += [(RESDCN101_NODE, b) for b in (1, TRAIN_BATCH)]
+    for i, (shape, batch) in enumerate(cases):
         for dtype, (tol, tol_off) in tols.items():
-            args, g = bwd_inputs(shape, dtype, SEED + i, 2)
+            args, g = bwd_inputs(shape, dtype, SEED + i, batch)
             for mode, kw in BWD_CLAMPS.items():
                 worst, _ = check_bwd(
-                    f"{shape} {mode:7s} {str(dtype)[6:]:8s}", args, g, kw,
-                    tol, tol_off)
+                    f"b{batch} {shape} {mode:7s} {str(dtype)[6:]:8s}", args,
+                    g, kw, tol, tol_off)
                 if dtype == torch.float32:
                     errs[mode] = max(errs[mode], worst)
+            del args, g
     for j, (case, dts) in enumerate(BWD_TILE_CASES.items()):
         batch, shape = case[0], case[1:]
         for dt in dts:
@@ -994,11 +1036,12 @@ def phase_train_vs_cpu(root):
         train_vs_cpu(root, "dla_34", kernel, mode)
 
 
-def train_vs_cpu(root, arch, kernel, mode):
+def train_vs_cpu(root, arch, kernel, mode, nodes=16):
     """One f32 train step of `arch` on the card (TF32 off) against the
     port on the CPU at 128x256, batch 2, from the trainer's seeded init;
-    `mode` is the DCN mode whose backward kernel must run 16 times a step
-    on the card, None for a net with no DCNv2 node (no launch at all).
+    `mode` is the DCN mode whose backward kernel must run once a DCN node
+    (`nodes`: DLA-34 16, resdcn 3) a step on the card, None for a net with
+    no DCNv2 node (no launch at all).
 
     A random net in train mode is ill-conditioned (measured on DLA-34 and
     on tests/test_torch_hourglass.py's narrow 2-stack hourglass): train-mode
@@ -1137,8 +1180,8 @@ def train_vs_cpu(root, arch, kernel, mode):
     if mode is None:
         check(not counts, f"DCN launches on a net with no DCNv2 node: {counts}")
     else:
-        check(counts.get(f"bwd_{mode}", 0) == 32, f"card runs did not "
-              f"launch the backward kernel 16 times each: {counts}")
+        check(counts.get(f"bwd_{mode}", 0) == 2 * nodes, f"card runs did "
+              f"not launch the backward kernel {nodes} times each: {counts}")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
@@ -1455,6 +1498,17 @@ def print_profile(label, wall_ms, rows, per=1):
     return {kind: ms / per for kind, ms in kinds.items()}
 
 
+def profile_step(tr, label):
+    """One profiled train step of `tr` on a device-resident batch:
+    `print_profile`'s device time by kind."""
+    batch = tr.put(next(iter(tr.train_loader)))
+
+    def step():
+        tr.state, _ = tr.train_step(tr.state, batch)
+    wall_ms, rows = profile_device(step)
+    return print_profile(label, wall_ms, rows)
+
+
 def phase_hourglass_infer(frames):
     """Phase 11: smallhourglass polydet inference at full width (8
     classes, 16 vertices, heads 256 wide, 512x1024 input for 2048x1024
@@ -1572,12 +1626,7 @@ def phase_hourglass_train(root):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True
         step_times(tr, arch)
-        batch = tr.put(next(iter(tr.train_loader)))
-
-        def step():
-            tr.state, _ = tr.train_step(tr.state, batch)
-        wall_ms, rows = profile_device(step)
-        kinds = print_profile(f"hourglass-profile {arch} step", wall_ms, rows)
+        kinds = profile_step(tr, f"hourglass-profile {arch} step")
         # a step's convolutions: the forward, its data gradient and its
         # weight gradient, each about the forward's operations
         tflop = 3 * TRAIN_BATCH * conv_tflop(arch, tr.cfg.heads, (512, 1024))
@@ -1588,10 +1637,223 @@ def phase_hourglass_train(root):
                   f"shapes) in {kinds['convolution']:.3f} ms: "
                   f"{rate / 1e12:.1f} TFLOP/s "
                   f"({100 * rate / PEAK_TF32_FLOPS:.1f} % of the TF32 peak)")
-        del tr, batch
+        del tr
         torch.cuda.empty_cache()
         if arch == "smallhourglass":
             train_vs_cpu(root, arch, "off", None)
+
+
+def phase_resdcn_node_times():
+    """resdcn_101's first node, (16, 32, 2048, 256), timed as the other
+    nodes of phases 6 and 10: the bf16 forward at batch 1 (inference) and
+    the f32 forward and backward at batch 4 (a train step), each by CUDA
+    graph replay in the three modes, beside the plain version and the
+    bound; the forward and backward plans (K chunks and splits, dW splits
+    and tap ranges) at this Cin.  Returns {"fwd": {mode: {...}}, "bwd":
+    {mode: {...}}}."""
+    import torch
+    from centerpoly_tpu_torch.kernels import dcn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape, b = RESDCN101_NODE, TRAIN_BATCH
+    h, w, cin, cout = shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"fwd": {}, "fwd_f32": {}, "bwd": {}}
+    args = node_inputs(shape, torch.bfloat16, SEED)
+    bound, by = node_bound_ms(shape)
+    plan = dcn.fwd_plan(h * w, cin, cout, n_sm, torch.bfloat16)
+    for mode, kw in FWD_CLAMPS.items():
+        ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 20)
+        plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 5)
+        out["fwd"][mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                            "bound_by": by}
+        print(f"[resdcn-node] {shape} b1 bf16 {mode:7s} dcn_fwd {ms:.4f} ms "
+              f"plain {plain:.4f} ms bound {bound:.4f} ms ({by}, "
+              f"{100 * bound / ms:.1f} % of it) plan {plan}")
+    args = node_inputs(shape, torch.float32, SEED, b)
+    bound, by = fwd_f32_bound_ms(shape, b)
+    plan = dcn.fwd_plan(b * h * w, cin, cout, n_sm, torch.float32)
+    for mode, kw in FWD_CLAMPS.items():
+        ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 10)
+        plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 3)
+        out["fwd_f32"][mode] = {"ms": ms, "plain_ms": plain,
+                                "bound_ms": bound, "bound_by": by}
+        print(f"[resdcn-node] {shape} b{b} f32 {mode:7s} dcn_fwd {ms:.4f} ms "
+              f"plain {plain:.4f} ms bound {bound:.4f} ms ({by}, TF32; "
+              f"{100 * bound / ms:.1f} % of it) plan {plan}")
+    del args
+    args, g = bwd_inputs(shape, torch.float32, SEED, b)
+    bound, by, _ = bwd_bound_tf32_ms(shape, b)
+    plan = dcn.bwd_plan(b * h * w, cin, cout, n_sm)
+    for mode, kw in BWD_CLAMPS.items():
+        def fn():
+            return dcn.deform_conv2d_backward(*args, g, **kw)
+        ms = graph_ms(fn, 5)
+        plain = cuda_ms(
+            lambda: dcn.deform_conv2d_backward_ref(*args, g, **kw), 1, 3)
+        out["bwd"][mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                            "bound_by": by}
+        print(f"[resdcn-node] {shape} b{b} f32 {mode:7s} dcn_bwd {ms:.4f} ms "
+              f"plain {plain:.4f} ms bound {bound:.4f} ms ({by}, TF32; "
+              f"{100 * bound / ms:.1f} % of it) plan {plan}")
+    del args, g
+    return out
+
+
+def heads_vs_cpu(arch, sd, frame, nodes):
+    """One f32 forward of `arch` on the card (TF32 off) against the port
+    on the CPU, on a 2048x1024 frame warped to the 512x1024 input: every
+    head within 2e-3 relative max; `nodes` exact-mode DCN launches on the
+    card (0 for a net without DCNv2)."""
+    import torch
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(arch=arch, mixed_precision=False, dcn_kernel="off")
+    det = create_detector(cfg, sd)
+    det_cpu = create_detector(cfg, sd, device="cpu")
+    trans, meta = det._scaled_trans(*FRAME_HW, 1.0)
+    with torch.no_grad():
+        x = det_cpu._pre_device(torch.from_numpy(frame)[None], trans,
+                                (meta["inp_h"], meta["inp_w"]))
+        ref = det_cpu._heads(x)
+        if nodes:
+            got, _ = run_counted(lambda: det._heads(
+                x.to("cuda", memory_format=torch.channels_last)), "exact",
+                nodes)
+        else:
+            got = count_free(lambda: det._heads(
+                x.to("cuda", memory_format=torch.channels_last)), arch)
+    check_heads(f"{arch} {x.shape[2]}x{x.shape[3]}", ref, got)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def phase_resdcn18(frames, root):
+    """Phase 15: resdcn_18 at full width (8 classes, 16 vertices, head_conv
+    64, 512x1024 input for 2048x1024 uint8 frames, K=128), seeded random
+    weights: the bf16 detector in the inference default rowband:6 runs
+    `run` on each frame and `run_batch` of 4, each with the launch counts
+    zeroed just before and read just after (3 `dcn_fwd` launches a
+    forward, at the 3 node shapes), its times; f32 heads on the card
+    against the port on the CPU (< 2e-3); `main --arch resdcn_18` for one
+    epoch on the phase 9 fixture (batch 4, f32, `off`: 3 forward + 3
+    backward launches a step), its step p50, images/s and peak memory;
+    `train_vs_cpu` in `off`.  Returns the launch counts."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.models.deform_conv import DCNv2
+
+    arch, nodes = "resdcn_18", len(RESDCN_NODES["resdcn_18"])
+    cfg = Config(arch=arch)
+    check(cfg.prefer_fast_inference_dcn() and cfg.dcn_kernel == "rowband:6"
+          and (cfg.input_h, cfg.input_w, cfg.head_conv, cfg.K)
+          == (512, 1024, 64, 128), f"{arch} config")
+    sd = random_state_dict(create_model(arch, cfg.heads, cfg.head_conv), SEED)
+    det = create_detector(cfg, sd)
+    check(det.device.type == "cuda" and det.dtype == torch.bfloat16,
+          f"detector on {det.device} in {det.dtype}")
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append(
+            (*inp[0].shape[2:], inp[0].shape[1], out.shape[1])))
+        for m in det.model.modules() if isinstance(m, DCNv2)]
+    launches = {}
+    for i, frame in enumerate(frames):
+        ret, launches["run"] = run_counted(lambda: det.run(frame), "rowband",
+                                           nodes)
+        rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
+        check(rows.shape == (cfg.K, 4 + 1 + 2 * cfg.nbr_points + 1)
+              and np.isfinite(rows).all(), f"{arch} frame {i} results")
+    for h in hooks:
+        h.remove()
+    check(shapes[:nodes] == RESDCN_NODES[arch], f"DCN node shapes {shapes}")
+    batch, n = run_counted(lambda: det.run_batch(frames), "rowband", nodes)
+    check(len(batch) == len(frames), "run_batch returned the wrong count")
+    print(f"[resdcn18] bf16 rowband:6: run {launches['run']} dcn_fwd "
+          f"launches a frame at {shapes[:nodes]}, run_batch of "
+          f"{len(frames)} {n}; results finite, {cfg.K} rows")
+    e2e_times(det, f"{arch} rowband:6", frames)
+    wall_ms, rows = profile_device(lambda: [det.run(f) for f in frames[:3]])
+    print_profile("resdcn18-profile run, 3 frames", wall_ms, rows, 3)
+    del det
+    heads_vs_cpu(arch, sd, frames[0], nodes)
+
+    zero_counts()
+    tr = tmain.main(train_argv(root, "off", arch), device="cuda")
+    torch.cuda.synchronize()
+    counts = dict(dcn.launches)
+    steps, n_val = tr.state.step, len(tr.val_loader)
+    want = dict.fromkeys(counts, 0)
+    want["exact"], want["bwd_exact"] = nodes * (steps + n_val), nodes * steps
+    print(f"[resdcn18] main --arch {arch} --dcn_kernel off: {steps} steps of "
+          f"batch {TRAIN_BATCH} at {tr.cfg.input_h}x{tr.cfg.input_w} + "
+          f"{n_val} val batches; launches {counts}")
+    check(steps == 2 and counts == want, f"expected {nodes} forward + "
+          f"{nodes} backward launches a step, {want}")
+    check_saved(root, arch, "off")
+    launches["train_step"] = counts["bwd_exact"] // steps
+    loss_falls(tr, arch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    step_times(tr, f"{arch} off")
+    profile_step(tr, f"resdcn18-profile {arch} step")
+    del tr
+    torch.cuda.empty_cache()
+    train_vs_cpu(root, arch, "off", "exact", nodes)
+    return launches
+
+
+def phase_resdcn101(frames, root):
+    """Phase 16: resdcn_101 (its first DCN node reads 2048 channels; its
+    kernels against the plain versions at that node are in phases 3 and
+    8, its times in `phase_resdcn_node_times`): one f32 forward at full
+    width on the card against the port on the CPU (3 `dcn_fwd` launches);
+    `main --arch resdcn_101` for one epoch of 2 steps (batch 4, 512x1024,
+    f32, `off`, no val: 3 forward + 3 backward launches a step) and its
+    step p50, images/s and peak memory.  Then res_18, res_101 and dlav0_34:
+    one f32 forward each on the card against the CPU, no DCN launch.
+    Returns the resdcn_101 step's launch count."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.models import create_model
+
+    arch, nodes = "resdcn_101", len(RESDCN_NODES["resdcn_101"])
+    cfg = Config(arch=arch)
+    heads_vs_cpu(arch, random_state_dict(
+        create_model(arch, cfg.heads, cfg.head_conv), SEED), frames[1], nodes)
+    zero_counts()
+    tr = tmain.main(train_argv(root, "off", arch, val_intervals=0),
+                    device="cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    steps = tr.state.step
+    print(f"[resdcn101] main --arch {arch} --dcn_kernel off: {steps} steps "
+          f"of batch {TRAIN_BATCH} at {tr.cfg.input_h}x{tr.cfg.input_w}; "
+          f"launches {counts}")
+    check(steps == 2 and counts == {"exact": nodes * steps,
+                                    "bwd_exact": nodes * steps},
+          f"expected {nodes} forward + {nodes} backward launches a step")
+    check_saved(root, arch, "off", ("last",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    step_times(tr, f"{arch} off")
+    profile_step(tr, f"resdcn101-profile {arch} step")
+    del tr
+    torch.cuda.empty_cache()
+    for arch in ("res_18", "res_101", "dlav0_34"):
+        cfg = Config(arch=arch)
+        heads_vs_cpu(arch, random_state_dict(
+            create_model(arch, cfg.heads, cfg.head_conv), SEED), frames[2], 0)
+    return nodes
 
 
 EVAL_FRAMES = 4
@@ -2185,6 +2447,9 @@ def main() -> int:
         del trainers
         phase_hourglass_infer(frames)
         phase_hourglass_train(root)
+        resdcn_node = phase_resdcn_node_times()
+        resdcn18 = phase_resdcn18(frames, root)
+        resdcn101 = phase_resdcn101(frames, root)
         phase_eval(root, card)
         dp = phase_data_parallel(root, card)
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
@@ -2202,6 +2467,16 @@ def main() -> int:
     # over two replicas
     kernels[0]["dp_rank_step_launches"] = dp["dp"]["exact"]
     kernels[1]["sharded_run_batch_launches"] = dp["sharded"]
+    # phases 15 and 16: resdcn launches a frame and a step; resdcn_101's
+    # 2048-channel node (bf16 batch 1, f32 batch 4)
+    kernels[0]["resdcn18_train_step_launches"] = resdcn18["train_step"]
+    kernels[0]["resdcn101_train_step_launches"] = resdcn101
+    kernels[1]["resdcn18_run_launches"] = resdcn18["run"]
+    for k, mode in zip(kernels, FWD_CLAMPS):
+        node, node32 = resdcn_node["fwd"][mode], resdcn_node["fwd_f32"][mode]
+        k.update({f"resdcn101_node_{key}": node[key] for key in node})
+        k.update({f"resdcn101_node_f32_step_{key}": node32[key]
+                  for key in node32})
     kernels += [{"name": f"dcn_bwd[{mode}]", "route": "cuda",
                  "source": SOURCES["dcn_bwd"],
                  "replaces": REPLACES[f"dcn_bwd[{mode}]"],
@@ -2215,6 +2490,11 @@ def main() -> int:
                  "f32_core_bound_ms": bwd_f32_bound}
                 for mode in BWD_CLAMPS]
     kernels[3]["dp_rank_step_launches"] = dp["dp"]["bwd_exact"]
+    kernels[3]["resdcn18_train_step_launches"] = resdcn18["train_step"]
+    kernels[3]["resdcn101_train_step_launches"] = resdcn101
+    for k, mode in zip(kernels[3:], BWD_CLAMPS):
+        node = resdcn_node["bwd"][mode]
+        k.update({f"resdcn101_node_{key}": node[key] for key in node})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -536,6 +536,73 @@ def test_loader_shards_match_jax(shuffle):
             range(n))
 
 
+def test_explicit_triple_starts_one_rank_a_card(monkeypatch):
+    """`main --distributed` with the triple and no --device, on a host of
+    2 cards: process 1 of 3 starts 2 ranks, global ranks 2 and 3 of 6 on
+    cuda:0 and cuda:1 (LOCAL_RANK, LOCAL_WORLD_SIZE), as the JAX package's
+    process meshes both devices.  Without --distributed, one host's 2
+    cards are ranks 0 and 1 of 2.  torchrun's path (no triple) starts no
+    process."""
+    spawned = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.multiprocessing, "spawn",
+                        lambda fn, args, nprocs: spawned.append(
+                            (fn, args, nprocs)))
+    triple = ["--distributed", "--coordinator_address", "10.0.0.1:1234",
+              "--num_processes", "3", "--process_id", "1"]
+    assert tmain.main(["polydet", "--batch_size", "12", *triple]) is None
+    assert tmain.main(["polydet", "--batch_size", "12"]) is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmain.main(["polydet", "--distributed"])     # torchrun's
+    assert [nprocs for _, _, nprocs in spawned] == [2, 2]
+
+    ranks = []
+    for key in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.setenv(key, "unset")             # restored afterwards
+    monkeypatch.setattr(tmain, "main", lambda argv, device=None: ranks.append(
+        (Config.from_args(argv), device, os.environ["LOCAL_RANK"],
+         os.environ["LOCAL_WORLD_SIZE"])))
+    for fn, args, nprocs in spawned:
+        for k in range(nprocs):
+            fn(k, *args)
+    got = [(c.distributed, c.process_id, c.num_processes, dev, lr, lw)
+           for c, dev, lr, lw in ranks]
+    assert got == [(True, 2, 6, "cuda", "0", "2"),
+                   (True, 3, 6, "cuda", "1", "2"),
+                   (True, 0, 2, "cuda", "0", "2"),
+                   (True, 1, 2, "cuda", "1", "2")]
+    assert ranks[0][0].coordinator_address == "10.0.0.1:1234"
+    assert ranks[2][0].coordinator_address.startswith("localhost:")
+    with pytest.raises(ValueError):
+        mesh.host_ranks(3, 3, 2)
+
+
+@pytest.mark.parametrize("processes,cards", [(2, 2), (3, 2), (1, 4)])
+def test_triple_global_batch_is_jax_loaders(processes, cards):
+    """The ranks of `mesh.host_ranks` over every process take, step by
+    step, the global batch that the JAX package's Loader gives over the
+    processes (the same samples; each JAX process then splits its share
+    over its devices), over two shuffled epochs."""
+    from centerpoly_tpu.data.loader import Loader as JLoader
+    n, batch = 29, 12
+    kw = dict(shuffle=True, drop_last=True, seed=3)
+    ranks = [rank for p in range(processes)
+             for rank, world in mesh.host_ranks(processes, p, cards)]
+    world = processes * cards
+    assert sorted(ranks) == list(range(world))
+    ours = [Loader(None, n, batch // world, rank=r, world=world, **kw)
+            for r in ranks]
+    ref = [JLoader(None, n, batch // processes, rank=p, world=processes, **kw)
+           for p in range(processes)]
+    for _ in range(2):
+        got = list(zip(*[loader._index_batches() for loader in ours]))
+        want = list(zip(*[loader._index_batches() for loader in ref]))
+        assert len(got) == len(want) == n // batch
+        for a, b in zip(got, want):
+            assert sorted(np.concatenate(a).tolist()) == sorted(
+                np.concatenate(b).tolist())
+
+
 def test_config_flags_roundtrip():
     cfg = Config.from_args([
         "polydet", "--distributed", "--coordinator_address", "10.0.0.1:1234",

@@ -135,5 +135,8 @@ def test_load_reference_checkpoint(tmp_path):
 
 
 def test_other_archs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("res_18", HEADS, 64)
+    """Every arch of the JAX registry is ported; an unknown one raises
+    KeyError, as the JAX factory does."""
+    for arch in ("vgg_16", "dla_18", "res_x"):
+        with pytest.raises(KeyError, match="arch|DLA"):
+            create_model(arch, HEADS, 64)

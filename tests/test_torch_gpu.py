@@ -426,6 +426,58 @@ def test_smallhourglass_f32_on_card_matches_cpu(cuda):
         assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
 
 
+@pytest.mark.parametrize("arch", ["resdcn_18", "res_18", "dlav0_34"])
+def test_resnet_and_dlav0_on_card_match_cpu(cuda, arch):
+    """chip_smoke.py phases 15 and 16 in small: the model at 128x256, f32
+    (TF32 off), rowband:6, heads on the card within 2e-3 relative max of
+    the port on the CPU; resdcn_18 launches `dcn_fwd` once a DCN node (3),
+    the others never."""
+    from centerpoly_tpu_torch.models import create_model
+    heads = {"hm": 8, "poly": 32, "pseudo_depth": 1, "reg": 2}
+    torch.manual_seed(0)
+    model = create_model(arch, heads, 64, dcn_kernel="rowband:6").eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "conv_offset_mask" in name:
+                p.normal_(0, 0.3)
+    x = torch.randn(1, 3, 128, 256)
+    before = dict(dcn.launches)
+    with torch.no_grad():
+        ref = model(x)[-1]
+        model.to(cuda, memory_format=torch.channels_last)
+        got = model(x.to(cuda, memory_format=torch.channels_last))[-1]
+    torch.cuda.synchronize()
+    nodes = 3 if arch.startswith("resdcn") else 0
+    assert dcn.launches["rowband"] == before["rowband"] + nodes
+    assert sum(dcn.launches.values()) == sum(before.values()) + nodes
+    for k in heads:
+        assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("dtype,tol,tol_off", [(torch.float32, 1e-4, 1e-3),
+                                               (torch.bfloat16, 3e-2, 3e-2)])
+@pytest.mark.parametrize("mode", sorted(CLAMPS))
+def test_kernels_at_the_resdcn101_node(cuda, batch, dtype, tol, tol_off,
+                                       mode):
+    """Both kernels at resdcn_101's first node, (16, 32, 2048, 256): 4x the
+    input width of any DLA-34 node, so 4x the forward's K chunks and the
+    backward's K tiles; against the plain versions with this file's
+    tolerances (the forward's bf16 one is 2e-2)."""
+    args = _inputs(cuda, dtype, batch, 16, 32, 2048, 256)
+    kw = CLAMPS[mode]
+    got = dcn.deform_conv2d(*args, **kw)
+    ref = dcn.deform_conv2d_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < TOLS[dtype]
+    g = torch.randn(batch, 16, 32, 256, generator=torch.Generator()
+                    .manual_seed(1)).to(cuda, dtype)
+    rel = _bwd_rel(dcn.deform_conv2d_backward(*args, g, **kw),
+                   dcn.deform_conv2d_backward_ref(*args, g, **kw))
+    assert rel["doffsets"] < tol_off, rel
+    assert max(v for k, v in rel.items() if k != "doffsets") < tol, rel
+
+
 @pytest.mark.parametrize("eval_batch", [1, 2])
 def test_eval_cli_on_card(cuda, tmp_path, monkeypatch, eval_batch):
     """`python -m centerpoly_tpu_torch.test` on the card (bf16, the

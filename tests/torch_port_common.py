@@ -102,6 +102,19 @@ def jax_dla_variables(heads, head_conv: int, h: int, w: int, seed: int,
     return model, randomize_variables(shapes, seed, offset_gain)
 
 
+def jax_variables(arch: str, heads, head_conv: int, h: int, w: int,
+                  seed: int, offset_gain: float = 1.0, gain: float = 1.2):
+    """(flax model of `arch` from the JAX registry, random variables) for
+    an (h, w) input."""
+    from centerpoly_tpu.models import create_model
+
+    model = create_model(arch, heads, head_conv)
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0),
+                           jnp.zeros((1, h, w, 3)), train=False))
+    return model, randomize_variables(shapes, seed, offset_gain, gain)
+
+
 def jax_hourglass_variables(heads, h: int, w: int, seed: int,
                             num_stacks: int = 1, gain: float = 1.2, **kw):
     """(flax HourglassNet, random variables) for an (h, w) input, from
@@ -116,13 +129,15 @@ def jax_hourglass_variables(heads, h: int, w: int, seed: int,
     return model, randomize_variables(shapes, seed, gain=gain)
 
 
-def port_model(variables, heads, head_conv: int, dcn_kernel: str = "auto"):
-    """The port's DLASeg with the JAX variables loaded (f32, CPU, eval)."""
+def port_model(variables, heads, head_conv: int, dcn_kernel: str = "auto",
+               arch: str = "dla_34"):
+    """The port's model of `arch` with the JAX variables loaded (f32, CPU,
+    eval)."""
     from centerpoly_tpu_torch.models import create_model
     from centerpoly_tpu_torch.weights import load_weights, state_dict_from_jax
 
-    model = create_model("dla_34", heads, head_conv, dcn_kernel=dcn_kernel)
-    load_weights(model, state_dict_from_jax(variables), strict=True)
+    model = create_model(arch, heads, head_conv, dcn_kernel=dcn_kernel)
+    load_weights(model, state_dict_from_jax(variables, arch), strict=True)
     return model.eval()
 
 
@@ -141,8 +156,14 @@ def self_sensitivity(net, batch, loss_cfg):
 
     from centerpoly_tpu_torch.losses import polydet_loss
 
+    from centerpoly_tpu_torch.models.deform_conv import DCNv2
+
     batches = batch if isinstance(batch, list) else [batch]
     sd = {k: v.clone() for k, v in net.state_dict().items()}
+    # every DCNv2 node of DLA-34 and resdcn feeds a train-mode BatchNorm,
+    # which removes its bias: that gradient is 0 but for rounding
+    dcn_biases = {f"{name}.bias" for name, m in net.named_modules()
+                  if isinstance(m, DCNv2)}
 
     def run(gen=None):
         net.load_state_dict(sd)
@@ -171,5 +192,5 @@ def self_sensitivity(net, batch, loss_cfg):
     net.zero_grad(set_to_none=True)
     return ({k: abs(s1[k] - s0[k]) for k in s0},
             {n: float((g1[n] - g0[n]).norm() / g0[n].norm()) for n in g0
-             if not (".conv.bias" in n and "ida" in n)},
+             if n not in dcn_biases},
             {n: float((b1[n] - b0[n]).abs().max()) for n in b0})
