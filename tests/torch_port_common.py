@@ -93,13 +93,7 @@ def randomize_variables(shapes, seed: int, offset_gain: float = 1.0,
 def jax_dla_variables(heads, head_conv: int, h: int, w: int, seed: int,
                       offset_gain: float = 1.0):
     """(flax DLASeg, random variables) for an (h, w) input."""
-    from centerpoly_tpu.models import create_model
-
-    model = create_model("dla_34", heads, head_conv)
-    shapes = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0),
-                           jnp.zeros((1, h, w, 3)), train=False))
-    return model, randomize_variables(shapes, seed, offset_gain)
+    return jax_variables("dla_34", heads, head_conv, h, w, seed, offset_gain)
 
 
 def jax_variables(arch: str, heads, head_conv: int, h: int, w: int,
