@@ -23,11 +23,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     With `process_group` set (train/step.py sets it for a data-parallel
     step), training takes the statistics of the global batch, every rank's
     samples together, as the JAX package's mesh step does: the per-channel
-    count, sum and sum of squares in f32 are summed over the group by a
-    differentiable all_reduce, the variance is flax's E[x^2] - E[x]^2
-    (biased, at least 0), and the running statistics track the same
-    global values on every rank.  nn.SyncBatchNorm would track the
-    unbiased variance."""
+    count, sum and sum of squares in f32 (f64 for a net in f64) are
+    summed over the group by a differentiable all_reduce, the variance is
+    flax's E[x^2] - E[x]^2 (biased, at least 0), and the running
+    statistics track the same global values on every rank.
+    nn.SyncBatchNorm would track the unbiased variance."""
 
     process_group = None
 
@@ -37,7 +37,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         if self.process_group is not None:
             return self._global_batch_norm(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+            var, mean = torch.var_mean(_at_least_f32(x), dim=(0, 2, 3),
                                        correction=0)
             self._track(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
@@ -54,7 +54,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         from torch.distributed.nn.functional import all_reduce
 
         c = x.shape[1]
-        xf = x.float()
+        xf = _at_least_f32(x)
         local = torch.cat([xf.new_full((1,), x.numel() // c),
                            xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
         total = all_reduce(local, group=self.process_group)
@@ -65,6 +65,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         shift = self.bias - mean * scale
         return (x * scale.to(x.dtype)[None, :, None, None]
                 + shift.to(x.dtype)[None, :, None, None])
+
+
+def _at_least_f32(x):
+    """x in the dtype BatchNorm takes its statistics in: f32, or f64 for a
+    net in f64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class ConvBN(nn.Sequential):

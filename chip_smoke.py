@@ -118,12 +118,14 @@ with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Phases
      share of `run` by kind; f32 heads on the
      card against the CPU port (relative max < 2e-3); `main --arch
      resdcn_18` for one epoch on the phase 9 fixture (batch 4, f32, `off`,
-     3 + 3 launches a step), the loss falling, step p50, peak memory and
-     one profiled step; `train_vs_cpu` in `off`;
- 16. resdcn_101 (`phase_resdcn101`): one f32 forward on the card against
-     the CPU port (3 launches), `main --arch resdcn_101` for an epoch of 2
-     steps at batch 4 with its step p50, peak memory and one profiled
-     step; then res_18,
+     3 + 3 launches a step), the loss falling, one more step with the
+     counts zeroed just before and read just after (the kernels line's
+     `resdcn18_train_step_launches`), step p50, peak memory and one
+     profiled step; `train_vs_cpu` in `off`;
+ 16. resdcn_101 (`phase_resdcn101`, random weights at RES101_GAIN): one
+     f32 forward on the card against the CPU port (3 launches), `main
+     --arch resdcn_101` for an epoch of 2 steps at batch 4, one counted
+     step, its step p50, peak memory and one profiled step; then res_18,
      res_101 and dlav0_34, one f32 forward each against the CPU port, no
      DCN launch.
 
@@ -183,6 +185,12 @@ PROFILE_KINDS = {"convolution": ("implicit_gemm", "fprop", "dgrad", "wgrad",
 # 1.2 the ~100 convolutions of a stack take the logits to ~300, where the
 # heat map's sigmoid is exactly 1 at many peaks)
 HG_GAIN = 0.8
+# conv gain of the random ResNet-101 weights (res_101, resdcn_101): at 1.2
+# the 33 bottlenecks take the trunk's output to ~5e4 and the heads to
+# ~1e4, where a head's error relative to its own maximum leaves most of
+# the map unchecked; at 0.9 the trunk's output stays within ~20 and the
+# heads within ~1 (measured on the CPU at 256x512)
+RES101_GAIN = 0.9
 SOURCES = {"dcn_fwd": "centerpoly_tpu_torch/csrc/dcn_fwd.cu",
            "dcn_bwd": "centerpoly_tpu_torch/csrc/dcn_bwd.cu"}
 REPLACES = {"dcn_fwd[exact]": "centerpoly_tpu/kernels/dcn_pallas.py:44",
@@ -269,6 +277,38 @@ def graph_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def mode_times(kernel, plain, clamps, iters, plain_iters, eager=None):
+    """Device ms of one call in each clamp mode: `kernel(**kw)` by CUDA
+    graph replay of `iters` calls, its eager call by CUDA events where
+    `eager` = (warm-up calls, timed calls) is given, and `plain(**kw)` by
+    CUDA events (1 warm-up, `plain_iters` timed).  Returns {mode: {"ms",
+    "plain_ms"[, "eager_ms"]}}."""
+    out = {}
+    for mode, kw in clamps.items():
+        t = {"ms": graph_ms(lambda: kernel(**kw), iters)}
+        if eager:
+            t["eager_ms"] = cuda_ms(lambda: kernel(**kw), *eager)
+        t["plain_ms"] = cuda_ms(lambda: plain(**kw), 1, plain_iters)
+        out[mode] = t
+    return out
+
+
+def fwd_fns(args):
+    """(kernel, plain) forward calls of a node's inputs, taking the clamp
+    keywords."""
+    from centerpoly_tpu_torch.kernels import dcn
+    return (lambda **kw: dcn.deform_conv2d(*args, **kw),
+            lambda **kw: dcn.deform_conv2d_ref(*args, **kw))
+
+
+def bwd_fns(args, g):
+    """(kernel, plain) backward calls of a node's inputs and output
+    gradient, taking the clamp keywords."""
+    from centerpoly_tpu_torch.kernels import dcn
+    return (lambda **kw: dcn.deform_conv2d_backward(*args, g, **kw),
+            lambda **kw: dcn.deform_conv2d_backward_ref(*args, g, **kw))
 
 
 def node_inputs(shape, dtype, seed, batch=1, scale=4.0):
@@ -617,7 +657,6 @@ def phase_halo_slice(sd, frames, root):
 
 def phase_times(det, det_halo, frames):
     import torch
-    from centerpoly_tpu_torch.kernels import dcn
     import torch.nn.functional as F
     per_frame = {m: {"ms": 0.0, "plain_ms": 0.0} for m in FWD_CLAMPS}
     bound_frame, ops_share, conv_frame = 0.0, 0.0, 0.0
@@ -635,10 +674,9 @@ def phase_times(det, det_halo, frames):
             memory_format=torch.channels_last)
         conv = graph_ms(lambda: F.conv2d(xc, wc, args[4], padding=1), 20)
         conv_frame += n * conv
-        for mode, kw in FWD_CLAMPS.items():
-            ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 20)
-            eager = cuda_ms(lambda: dcn.deform_conv2d(*args, **kw), 3, 20)
-            plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 5)
+        times = mode_times(*fwd_fns(args), FWD_CLAMPS, 20, 5, eager=(3, 20))
+        for mode, t in times.items():
+            ms, eager, plain = t["ms"], t["eager_ms"], t["plain_ms"]
             per_frame[mode]["ms"] += n * ms
             per_frame[mode]["plain_ms"] += n * plain
             print(f"[time] {shape} x{n} {mode:7s} kernel {ms:.4f} ms "
@@ -711,7 +749,6 @@ def phase_fwd_train_times():
     and per step (16 nodes), in the three modes, against its bound and the
     plain version."""
     import torch
-    from centerpoly_tpu_torch.kernels import dcn
     per_step = {m: {"ms": 0.0, "plain_ms": 0.0} for m in FWD_CLAMPS}
     bound_step, ops_share = 0.0, 0.0
     for i, (shape, n) in enumerate(NODE_SHAPES.items()):
@@ -721,9 +758,9 @@ def phase_fwd_train_times():
         ops_share += n * bound * (by == "operations")
         flops = 2.0 * TRAIN_BATCH * np.prod(shape[:2]) * 9 * np.prod(shape[2:])
         splits = fwd_splits(shape, TRAIN_BATCH, torch.float32)
-        for mode, kw in FWD_CLAMPS.items():
-            ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 10)
-            plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 3)
+        times = mode_times(*fwd_fns(args), FWD_CLAMPS, 10, 3)
+        for mode, t in times.items():
+            ms, plain = t["ms"], t["plain_ms"]
             per_step[mode]["ms"] += n * ms
             per_step[mode]["plain_ms"] += n * plain
             print(f"[time-f32] {shape} x{n} b{TRAIN_BATCH} {mode:7s} kernel "
@@ -1333,13 +1370,9 @@ def phase_bwd_times(check_plain: bool = True):
                 worst, _ = check_bwd(f"b{TRAIN_BATCH} {shape} {mode:7s} "
                                      f"float32", args, g, kw, 1e-4, 1e-3)
                 errs[mode] = max(errs[mode], worst)
-
-            def fn():
-                return dcn.deform_conv2d_backward(*args, g, **kw)
-            ms = graph_ms(fn, 5)
-            eager = cuda_ms(fn, 2, 10)
-            plain = cuda_ms(
-                lambda: dcn.deform_conv2d_backward_ref(*args, g, **kw), 1, 3)
+        times = mode_times(*bwd_fns(args, g), BWD_CLAMPS, 5, 3, eager=(2, 10))
+        for mode, t in times.items():
+            ms, eager, plain = t["ms"], t["eager_ms"], t["plain_ms"]
             per_step[mode]["ms"] += n * ms
             per_step[mode]["eager_ms"] += n * eager
             per_step[mode]["plain_ms"] += n * plain
@@ -1645,57 +1678,43 @@ def phase_hourglass_train(root):
 
 def phase_resdcn_node_times():
     """resdcn_101's first node, (16, 32, 2048, 256), timed as the other
-    nodes of phases 6 and 10: the bf16 forward at batch 1 (inference) and
-    the f32 forward and backward at batch 4 (a train step), each by CUDA
-    graph replay in the three modes, beside the plain version and the
-    bound; the forward and backward plans (K chunks and splits, dW splits
-    and tap ranges) at this Cin.  Returns {"fwd": {mode: {...}}, "bwd":
-    {mode: {...}}}."""
+    nodes of phases 6 and 10 (`mode_times`): the bf16 forward at batch 1
+    (inference) and the f32 forward and backward at batch 4 (a train
+    step) in the three modes, beside the plain version and the bound; the
+    forward and backward plans (K chunks and splits, dW splits and tap
+    ranges) at this Cin.  Returns {"fwd" | "fwd_f32" | "bwd": {mode:
+    {"ms", "plain_ms", "bound_ms", "bound_by"}}}."""
     import torch
     from centerpoly_tpu_torch.kernels import dcn
     torch.backends.cuda.matmul.allow_tf32 = False
-    shape, b = RESDCN101_NODE, TRAIN_BATCH
+    shape = RESDCN101_NODE
     h, w, cin, cout = shape
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    out = {"fwd": {}, "fwd_f32": {}, "bwd": {}}
-    args = node_inputs(shape, torch.bfloat16, SEED)
-    bound, by = node_bound_ms(shape)
-    plan = dcn.fwd_plan(h * w, cin, cout, n_sm, torch.bfloat16)
-    for mode, kw in FWD_CLAMPS.items():
-        ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 20)
-        plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 5)
-        out["fwd"][mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                            "bound_by": by}
-        print(f"[resdcn-node] {shape} b1 bf16 {mode:7s} dcn_fwd {ms:.4f} ms "
-              f"plain {plain:.4f} ms bound {bound:.4f} ms ({by}, "
-              f"{100 * bound / ms:.1f} % of it) plan {plan}")
-    args = node_inputs(shape, torch.float32, SEED, b)
-    bound, by = fwd_f32_bound_ms(shape, b)
-    plan = dcn.fwd_plan(b * h * w, cin, cout, n_sm, torch.float32)
-    for mode, kw in FWD_CLAMPS.items():
-        ms = graph_ms(lambda: dcn.deform_conv2d(*args, **kw), 10)
-        plain = cuda_ms(lambda: dcn.deform_conv2d_ref(*args, **kw), 1, 3)
-        out["fwd_f32"][mode] = {"ms": ms, "plain_ms": plain,
-                                "bound_ms": bound, "bound_by": by}
-        print(f"[resdcn-node] {shape} b{b} f32 {mode:7s} dcn_fwd {ms:.4f} ms "
-              f"plain {plain:.4f} ms bound {bound:.4f} ms ({by}, TF32; "
-              f"{100 * bound / ms:.1f} % of it) plan {plan}")
-    del args
-    args, g = bwd_inputs(shape, torch.float32, SEED, b)
-    bound, by, _ = bwd_bound_tf32_ms(shape, b)
-    plan = dcn.bwd_plan(b * h * w, cin, cout, n_sm)
-    for mode, kw in BWD_CLAMPS.items():
-        def fn():
-            return dcn.deform_conv2d_backward(*args, g, **kw)
-        ms = graph_ms(fn, 5)
-        plain = cuda_ms(
-            lambda: dcn.deform_conv2d_backward_ref(*args, g, **kw), 1, 3)
-        out["bwd"][mode] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                            "bound_by": by}
-        print(f"[resdcn-node] {shape} b{b} f32 {mode:7s} dcn_bwd {ms:.4f} ms "
-              f"plain {plain:.4f} ms bound {bound:.4f} ms ({by}, TF32; "
-              f"{100 * bound / ms:.1f} % of it) plan {plan}")
-    del args, g
+    out = {}
+    for key, b, dtype, iters, plain_iters in (
+            ("fwd", 1, torch.bfloat16, 20, 5),
+            ("fwd_f32", TRAIN_BATCH, torch.float32, 10, 3),
+            ("bwd", TRAIN_BATCH, torch.float32, 5, 3)):
+        if key == "bwd":
+            args, g = bwd_inputs(shape, dtype, SEED, b)
+            fns, clamps = bwd_fns(args, g), BWD_CLAMPS
+            bound, by, _ = bwd_bound_tf32_ms(shape, b)
+            plan = dcn.bwd_plan(b * h * w, cin, cout, n_sm)
+        else:
+            args = node_inputs(shape, dtype, SEED, b)
+            fns, clamps = fwd_fns(args), FWD_CLAMPS
+            bound, by = (node_bound_ms(shape) if dtype == torch.bfloat16
+                         else fwd_f32_bound_ms(shape, b))
+            plan = dcn.fwd_plan(b * h * w, cin, cout, n_sm, dtype)
+        out[key] = mode_times(*fns, clamps, iters, plain_iters)
+        for mode, t in out[key].items():
+            t.update(bound_ms=bound, bound_by=by)
+            print(f"[resdcn-node] {shape} b{b} {str(dtype)[6:]} {mode:7s} "
+                  f"dcn_{key[:3]} {t['ms']:.4f} ms plain {t['plain_ms']:.4f} "
+                  f"ms bound {bound:.4f} ms ({by}"
+                  f"{'' if dtype == torch.bfloat16 else ', TF32'}; "
+                  f"{100 * bound / t['ms']:.1f} % of it) plan {plan}")
+        del args, fns
     return out
 
 
@@ -1731,6 +1750,36 @@ def heads_vs_cpu(arch, sd, frame, nodes):
      torch.backends.cudnn.allow_tf32) = flags
 
 
+def random_weights(arch):
+    """Seeded random weights of `arch` at its default heads and head_conv
+    (`random_state_dict`; ResNet-101 at RES101_GAIN)."""
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.models import create_model
+    cfg = Config(arch=arch)
+    gain = RES101_GAIN if arch.endswith("_101") else 1.2
+    return random_state_dict(create_model(arch, cfg.heads, cfg.head_conv),
+                             SEED, gain)
+
+
+def step_launches(tr, nodes):
+    """One train step of `tr` on a batch of its loader, with the launch
+    counts zeroed just before and read just after: `nodes` exact forward
+    and `nodes` exact backward launches, none of another kind.  Returns
+    the counts."""
+    import torch
+    from centerpoly_tpu_torch.kernels import dcn
+    batch = tr.put(next(iter(tr.train_loader)))
+    torch.cuda.synchronize()
+    zero_counts()
+    tr.state, _ = tr.train_step(tr.state, batch)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    check(counts == {"exact": nodes, "bwd_exact": nodes}, f"one train "
+          f"step: expected {nodes} forward + {nodes} backward launches, got "
+          f"{counts}")
+    return counts
+
+
 def phase_resdcn18(frames, root):
     """Phase 15: resdcn_18 at full width (8 classes, 16 vertices, head_conv
     64, 512x1024 input for 2048x1024 uint8 frames, K=128), seeded random
@@ -1741,13 +1790,13 @@ def phase_resdcn18(frames, root):
     against the port on the CPU (< 2e-3); `main --arch resdcn_18` for one
     epoch on the phase 9 fixture (batch 4, f32, `off`: 3 forward + 3
     backward launches a step), its step p50, images/s and peak memory;
-    `train_vs_cpu` in `off`.  Returns the launch counts."""
+    `train_vs_cpu` in `off`.  Returns the launch counts: "run" (a frame)
+    and "step" (`step_launches`: one train step, by kernel)."""
     import torch
     from centerpoly_tpu_torch import main as tmain
     from centerpoly_tpu_torch.configs import Config
     from centerpoly_tpu_torch.infer.detector import create_detector
     from centerpoly_tpu_torch.kernels import dcn
-    from centerpoly_tpu_torch.models import create_model
     from centerpoly_tpu_torch.models.deform_conv import DCNv2
 
     arch, nodes = "resdcn_18", len(RESDCN_NODES["resdcn_18"])
@@ -1755,7 +1804,7 @@ def phase_resdcn18(frames, root):
     check(cfg.prefer_fast_inference_dcn() and cfg.dcn_kernel == "rowband:6"
           and (cfg.input_h, cfg.input_w, cfg.head_conv, cfg.K)
           == (512, 1024, 64, 128), f"{arch} config")
-    sd = random_state_dict(create_model(arch, cfg.heads, cfg.head_conv), SEED)
+    sd = random_weights(arch)
     det = create_detector(cfg, sd)
     check(det.device.type == "cuda" and det.dtype == torch.bfloat16,
           f"detector on {det.device} in {det.dtype}")
@@ -1798,8 +1847,8 @@ def phase_resdcn18(frames, root):
     check(steps == 2 and counts == want, f"expected {nodes} forward + "
           f"{nodes} backward launches a step, {want}")
     check_saved(root, arch, "off")
-    launches["train_step"] = counts["bwd_exact"] // steps
     loss_falls(tr, arch)
+    launches["step"] = step_launches(tr, nodes)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     step_times(tr, f"{arch} off")
@@ -1818,18 +1867,15 @@ def phase_resdcn101(frames, root):
     `main --arch resdcn_101` for one epoch of 2 steps (batch 4, 512x1024,
     f32, `off`, no val: 3 forward + 3 backward launches a step) and its
     step p50, images/s and peak memory.  Then res_18, res_101 and dlav0_34:
-    one f32 forward each on the card against the CPU, no DCN launch.
-    Returns the resdcn_101 step's launch count."""
+    one f32 forward each on the card against the CPU, no DCN launch.  The
+    ResNet-101 weights are at RES101_GAIN.  Returns the launch counts of
+    one resdcn_101 train step by kernel (`step_launches`)."""
     import torch
     from centerpoly_tpu_torch import main as tmain
-    from centerpoly_tpu_torch.configs import Config
     from centerpoly_tpu_torch.kernels import dcn
-    from centerpoly_tpu_torch.models import create_model
 
     arch, nodes = "resdcn_101", len(RESDCN_NODES["resdcn_101"])
-    cfg = Config(arch=arch)
-    heads_vs_cpu(arch, random_state_dict(
-        create_model(arch, cfg.heads, cfg.head_conv), SEED), frames[1], nodes)
+    heads_vs_cpu(arch, random_weights(arch), frames[1], nodes)
     zero_counts()
     tr = tmain.main(train_argv(root, "off", arch, val_intervals=0),
                     device="cuda")
@@ -1843,6 +1889,7 @@ def phase_resdcn101(frames, root):
                                     "bwd_exact": nodes * steps},
           f"expected {nodes} forward + {nodes} backward launches a step")
     check_saved(root, arch, "off", ("last",))
+    step = step_launches(tr, nodes)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
     step_times(tr, f"{arch} off")
@@ -1850,10 +1897,8 @@ def phase_resdcn101(frames, root):
     del tr
     torch.cuda.empty_cache()
     for arch in ("res_18", "res_101", "dlav0_34"):
-        cfg = Config(arch=arch)
-        heads_vs_cpu(arch, random_state_dict(
-            create_model(arch, cfg.heads, cfg.head_conv), SEED), frames[2], 0)
-    return nodes
+        heads_vs_cpu(arch, random_weights(arch), frames[2], 0)
+    return step
 
 
 EVAL_FRAMES = 4
@@ -2467,10 +2512,11 @@ def main() -> int:
     # over two replicas
     kernels[0]["dp_rank_step_launches"] = dp["dp"]["exact"]
     kernels[1]["sharded_run_batch_launches"] = dp["sharded"]
-    # phases 15 and 16: resdcn launches a frame and a step; resdcn_101's
-    # 2048-channel node (bf16 batch 1, f32 batch 4)
-    kernels[0]["resdcn18_train_step_launches"] = resdcn18["train_step"]
-    kernels[0]["resdcn101_train_step_launches"] = resdcn101
+    # phases 15 and 16: resdcn launches a frame and a train step, each
+    # counted in its own run; resdcn_101's 2048-channel node (bf16 batch 1,
+    # f32 batch 4)
+    kernels[0]["resdcn18_train_step_launches"] = resdcn18["step"]["exact"]
+    kernels[0]["resdcn101_train_step_launches"] = resdcn101["exact"]
     kernels[1]["resdcn18_run_launches"] = resdcn18["run"]
     for k, mode in zip(kernels, FWD_CLAMPS):
         node, node32 = resdcn_node["fwd"][mode], resdcn_node["fwd_f32"][mode]
@@ -2490,8 +2536,8 @@ def main() -> int:
                  "f32_core_bound_ms": bwd_f32_bound}
                 for mode in BWD_CLAMPS]
     kernels[3]["dp_rank_step_launches"] = dp["dp"]["bwd_exact"]
-    kernels[3]["resdcn18_train_step_launches"] = resdcn18["train_step"]
-    kernels[3]["resdcn101_train_step_launches"] = resdcn101
+    kernels[3]["resdcn18_train_step_launches"] = resdcn18["step"]["bwd_exact"]
+    kernels[3]["resdcn101_train_step_launches"] = resdcn101["bwd_exact"]
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         node = resdcn_node["bwd"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})

@@ -5,7 +5,8 @@ reused by every test that needs a group.
 * one global-mode DLA-34 step (head_conv 16, 64x128, global batch 4, one
   sample a rank) against the JAX package's unsharded train step on the
   same global batch, which is what its mesh step computes
-  (tests/test_train.py:77-98): loss rtol 1e-4; every gradient, in
+  (tests/test_train.py:77-98), both in f64 (the ranks' nets and batches,
+  and JAX's model under jax.enable_x64): loss rtol 1e-4; every gradient, in
   relative L2, within 4x the port's own sensitivity floor (+1e-3) of
   JAX's (read from Adam's first moment), `test_torch_train.
   _check_train_step`'s bound; the BatchNorm statistics within rtol 1e-4,
@@ -13,8 +14,8 @@ reused by every test that needs a group.
   rank; and, as a sanity check beside them, the parameters after Adam
   within 2 lr + 1e-6 (Adam's first step moves a weight by ~lr sign(g)
   whatever the gradient, so this bound alone checks no gradient);
-* the same step against the port's own one-process batch-4 step, with
-  the same bounds;
+* the same step against the port's own one-process batch-4 step in f64,
+  with the same bounds;
 * `grad_bucket=True` on a batch that tiles one sample over the ranks,
   where per-rank statistics are the global ones, against the same JAX
   step on that batch: loss and parameters, as the JAX package's bucket
@@ -141,10 +142,19 @@ def ranks():
     r.close()
 
 
-def _port_net(sd):
+def _port_net(sd, double=False):
     net = create_model("dla_34", HEADS, HEAD_CONV)
     load_weights(net, sd, strict=True)
-    return net
+    return net.double() if double else net
+
+
+def _port_batch(host, double=False):
+    """A host batch as the port's step takes it; in f64 with `double`
+    (to_device casts to f32, and the sampler's batches are f32, so the
+    values are the same)."""
+    batch = to_device(host, "cpu")
+    return {k: v.double() if double and v.is_floating_point() else v
+            for k, v in batch.items()}
 
 
 def _grads(model) -> dict:
@@ -160,16 +170,16 @@ def _digest(arrays: dict) -> str:
     return h.hexdigest()
 
 
-def _step_on_rank(rank, sd, host, grad_bucket):
-    """One data-parallel step of this rank's share of `host`: the loss
-    stats, the BatchNorm statistics, a digest of the gradients the step
-    applied, and on rank 0 every parameter after the step and every
-    gradient."""
-    st = tstate.create_train_state(_port_net(sd), base_lr=LR)
+def _step_on_rank(rank, sd, host, grad_bucket, double=False):
+    """One data-parallel step of this rank's share of `host` (in f64 with
+    `double`): the loss stats, the BatchNorm statistics, a digest of the
+    gradients the step applied, and on rank 0 every parameter after the
+    step and every gradient."""
+    st = tstate.create_train_state(_port_net(sd, double), base_lr=LR)
     step = make_train_step(PolydetLossConfig(**LOSS), group=dist.group.WORLD,
                            grad_bucket=grad_bucket)
-    st, stats = step(st, to_device(mesh.shard_batch(host, rank, WORLD),
-                                   "cpu"))
+    st, stats = step(st, _port_batch(mesh.shard_batch(host, rank, WORLD),
+                                     double))
     grads = _grads(st.model)
     params = ({n: p.detach().numpy() for n, p in st.model.named_parameters()}
               if rank == 0 else None)
@@ -222,10 +232,10 @@ def jax_side():
     """(DLA-34 variables with zero offset convs, a function that runs the
     JAX package's one-device train step on a host batch and returns its
     stats, its parameters and BatchNorm statistics after the step, and
-    its gradients)."""
+    its gradients; the same in f64, torch_port_common.jax_step_f64)."""
     import jax
     import jax.numpy as jnp
-    from torch_port_common import jax_dla_variables
+    from torch_port_common import jax_dla_variables, jax_step_f64
 
     from centerpoly_tpu.losses import PolydetLossConfig as JLossConfig
     from centerpoly_tpu.train import state as jstate
@@ -259,21 +269,20 @@ def jax_side():
                  state_dict_from_jax({"params": mu}).items()}
         return {k: float(v) for k, v in stats.items()}, after, grads
 
-    return state_dict_from_jax(variables), run
+    def run_f64(host):
+        stats, grads, after = jax_step_f64("dla_34", HEADS, HEAD_CONV, (H, W),
+                                           LR, LOSS, variables, host)
+        return stats, after, {k: v.numpy() for k, v in grads.items()}
+
+    return state_dict_from_jax(variables), run, run_f64
 
 
-def _floor(sd, batches):
-    """The port's own sensitivity floor on `batches` (one batch, or a list
-    whose gradients are averaged): torch_port_common.self_sensitivity,
-    on the host's threads (`torch_port_common.threads`)."""
-    from torch_port_common import HOST_THREADS, self_sensitivity, threads
-    if isinstance(batches, list):
-        batches = [to_device(b, "cpu") for b in batches]
-    else:
-        batches = to_device(batches, "cpu")
-    with threads(HOST_THREADS):
-        return self_sensitivity(_port_net(sd), batches,
-                                PolydetLossConfig(**LOSS))[1]
+def _floor(sd, host, double=False):
+    """The port's own sensitivity floor on the host batch
+    (torch_port_common.self_sensitivity), in f64 with `double`."""
+    from torch_port_common import self_sensitivity
+    return self_sensitivity(_port_net(sd, double), _port_batch(host, double),
+                            PolydetLossConfig(**LOSS))[1]
 
 
 def _check_close_grads(grads, ref, rtol=1e-5):
@@ -323,17 +332,16 @@ def _same_on_every_rank(out):
     return stats, bufs, params, grads
 
 
-def _one_process_step(sd, host, threads=None):
+def _one_process_step(sd, host, double=False):
     """The port's one-process step of `host`: (stats, parameters and
-    BatchNorm statistics after it, gradients), on the host's threads
-    (`torch_port_common.threads`).  `threads=1` computes in a rank's
-    arithmetic (the ranks run one thread each)."""
-    from torch_port_common import HOST_THREADS
-    from torch_port_common import threads as using
-    st = tstate.create_train_state(_port_net(sd), base_lr=LR)
-    with using(threads or HOST_THREADS):
+    BatchNorm statistics after it, gradients); in f64 with `double`, else
+    in a rank's f32 arithmetic (one thread, `torch_port_common.threads`:
+    the ranks run one thread each)."""
+    from torch_port_common import threads
+    st = tstate.create_train_state(_port_net(sd, double), base_lr=LR)
+    with threads(torch.get_num_threads() if double else 1):
         st, stats = make_train_step(PolydetLossConfig(**LOSS))(
-            st, to_device(host, "cpu"))
+            st, _port_batch(host, double))
     after = {**dict(st.model.named_parameters()),
              **dict(st.model.named_buffers())}
     return ({k: float(v) for k, v in stats.items()},
@@ -342,16 +350,21 @@ def _one_process_step(sd, host, threads=None):
 
 def test_global_step_matches_jax_and_one_process(ranks, fixture_batches,
                                                  jax_side):
+    """The global step in f64 on every rank, against JAX's one-device step
+    and the port's one-process step, both in f64: in f32 the port's
+    result moves with torch's thread count, and JAX's with flax's f32
+    BatchNorm variance, by as much as the gradient bound
+    (tests/test_torch_train.py)."""
     host, _ = fixture_batches
-    sd, jax_run = jax_side
+    sd, _, jax_run_f64 = jax_side
     stats, bufs, params, grads = _same_on_every_rank(
-        ranks.run(_step_on_rank, sd, host, False))
-    floor = _floor(sd, host)
-    ref_stats, ref_after, ref_grads = jax_run(host)
+        ranks.run(_step_on_rank, sd, host, False, True))
+    floor = _floor(sd, host, double=True)
+    ref_stats, ref_after, ref_grads = jax_run_f64(host)
     _check_grads(grads, ref_grads, floor)
     _check_against(stats, bufs, params, ref_stats, ref_after, loss_rtol=1e-4)
 
-    one, one_after, one_grads = _one_process_step(sd, host)
+    one, one_after, one_grads = _one_process_step(sd, host, double=True)
     assert grads.keys() == one_grads.keys()
     _check_grads(grads, one_grads, floor)
     _check_against(stats, bufs, params, one, one_after, loss_rtol=1e-4)
@@ -373,14 +386,13 @@ def test_grad_bucket_on_a_tiled_batch_matches_jax(ranks, fixture_batches,
     The gradients are the port's one-process gradients of that sample in
     a rank's arithmetic instead (relative L2 1e-5)."""
     _, tiled = fixture_batches
-    sd, jax_run = jax_side
+    sd, jax_run, _ = jax_side
     stats, _, params, grads = _same_on_every_rank(
         ranks.run(_step_on_rank, sd, tiled, True))
     ref_stats, ref_after, _ = jax_run(tiled)
     np.testing.assert_allclose(stats["loss"], ref_stats["loss"], rtol=1e-4)
     _check_against({}, {}, params, {}, ref_after, 1e-4)
-    one = _one_process_step(sd, {k: v[:1] for k, v in tiled.items()},
-                            threads=1)
+    one = _one_process_step(sd, {k: v[:1] for k, v in tiled.items()})
     _check_close_grads(grads, one[2])
 
 
@@ -394,11 +406,11 @@ def test_grad_bucket_means_the_ranks_gradients(ranks, fixture_batches,
     rank.  Ranks that kept their own gradients, or a mean of other
     tensors, would be O(1) off."""
     host, _ = fixture_batches
-    sd, _ = jax_side
+    sd, _, _ = jax_side
     stats, bufs, _, grads = _same_on_every_rank(
         ranks.run(_step_on_rank, sd, host, True))
-    steps = [_one_process_step(sd, {k: v[i:i + 1] for k, v in host.items()},
-                               threads=1) for i in range(WORLD)]
+    steps = [_one_process_step(sd, {k: v[i:i + 1] for k, v in host.items()})
+             for i in range(WORLD)]
     _check_close_grads(grads, {n: np.mean([s[2][n] for s in steps], axis=0)
                                for n in steps[0][2]})
     for k, v in stats.items():

@@ -32,17 +32,11 @@ import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from torch_port_common import jax_variables, port_model, self_sensitivity
+from torch_port_common import (f64, jax_step_f64, jax_variables,
+                               port_batch_f64, port_model, self_sensitivity)
 
 from centerpoly_tpu.configs import Config as JaxConfig
 from centerpoly_tpu.infer import detector as jdet
-from centerpoly_tpu.losses import PolydetLossConfig as JLossConfig
-from centerpoly_tpu.models import create_model as jcreate_model
-from centerpoly_tpu.train import state as jstate
-from centerpoly_tpu.train.step import make_train_step as jmake_train_step
 from centerpoly_tpu_torch import main as tmain
 from centerpoly_tpu_torch import test as ttest
 from centerpoly_tpu_torch.configs import Config
@@ -53,8 +47,7 @@ from centerpoly_tpu_torch.infer.detector import create_detector
 from centerpoly_tpu_torch.losses import PolydetLossConfig
 from centerpoly_tpu_torch.models.resnet import ResNetDet
 from centerpoly_tpu_torch.train import state as tstate
-from centerpoly_tpu_torch.train.step import make_train_step, to_device
-from centerpoly_tpu_torch.weights import state_dict_from_jax
+from centerpoly_tpu_torch.train.step import make_train_step
 
 ARCH = "resdcn_18"
 H, W, HEAD_CONV, LR = 64, 128, 16, 2e-4
@@ -77,12 +70,6 @@ def fixture_batch(tmp_path_factory):
     return batch
 
 
-def _f64(tree):
-    return jax.tree.map(
-        lambda a: np.asarray(a, np.float64) if np.asarray(a).dtype.kind == "f"
-        else np.asarray(a), tree)
-
-
 @pytest.mark.parametrize("mode", ["off", "halo:2"])
 def test_train_step_matches_jax(monkeypatch, fixture_batch, mode):
     """One step of each package in f64 (the JAX model built with dtype
@@ -94,39 +81,18 @@ def test_train_step_matches_jax(monkeypatch, fixture_batch, mode):
         monkeypatch.delenv("CENTERPOLY_PALLAS_DCN", raising=False)
     else:
         monkeypatch.setenv("CENTERPOLY_PALLAS_DCN", mode)
-    variables = _f64(jax_variables(ARCH, HEADS, HEAD_CONV, H, W, seed=2)[1])
-    batch = _f64(fixture_batch)
-    with jax.enable_x64(True):
-        model = jcreate_model(ARCH, HEADS, HEAD_CONV, dtype=jnp.float64)
-        jst = jstate.create_train_state(model, jax.random.PRNGKey(0),
-                                        (1, H, W, 3), base_lr=LR,
-                                        fast_init=True)
-        params = jax.tree.map(jnp.asarray, variables["params"])
-        jst = jst.replace(params=params, opt_state=jst.tx.init(params),
-                          batch_stats=jax.tree.map(jnp.asarray,
-                                                   variables["batch_stats"]))
-        jst, jstats = jmake_train_step(JLossConfig(**LOSS))(
-            jst, jax.tree.map(jnp.asarray, batch))
-        assert jax.tree.leaves(jst.params)[0].dtype == jnp.float64
-        # Adam's first moment after one step is (1 - b1) g
-        mu = jax.tree.map(lambda m: np.asarray(m) / 0.1,
-                          jst.opt_state[0][0].mu)
-        jafter = jax.tree.map(np.asarray, {"params": jst.params,
-                                           "batch_stats": jst.batch_stats})
-    jgrads = state_dict_from_jax({"params": mu}, ARCH)
-    jafter = state_dict_from_jax(jafter, ARCH)
+    variables = f64(jax_variables(ARCH, HEADS, HEAD_CONV, H, W, seed=2)[1])
+    jstats, jgrads, jafter = jax_step_f64(ARCH, HEADS, HEAD_CONV, (H, W), LR,
+                                          LOSS, variables, fixture_batch)
 
     net = port_model(variables, HEADS, HEAD_CONV, dcn_kernel=mode,
                      arch=ARCH).double()
-    # to_device would cast to f32: the f64 batch as it makes it
-    batch = {k: torch.as_tensor(v) for k, v in batch.items() if k != "meta"}
-    batch["input"] = batch["input"].permute(0, 3, 1, 2)
+    batch = port_batch_f64(fixture_batch)
     stat_floor, grad_floor, buf_floor = self_sensitivity(
         net, batch, PolydetLossConfig(**LOSS))
     st = tstate.create_train_state(net, base_lr=LR)
     st, stats = make_train_step(PolydetLossConfig(**LOSS))(st, batch)
-    for k in jstats:
-        ref = float(jstats[k])
+    for k, ref in jstats.items():
         assert abs(float(stats[k]) - ref) <= 4 * stat_floor[k] + 1e-6 * abs(
             ref), (
             k, float(stats[k]), ref, stat_floor[k])

@@ -16,10 +16,6 @@ import jax
 import jax.numpy as jnp
 
 
-# torch's threads before `share_cores`: one a core of the host
-HOST_THREADS = torch.get_num_threads()
-
-
 def share_cores() -> int:
     """Cap torch's intra-op threads at this process's share of the cores.
 
@@ -41,11 +37,10 @@ share_cores()
 
 @contextlib.contextmanager
 def threads(n: int):
-    """torch on `n` threads inside the block.  A train step's f32 result
-    depends on the thread count (oneDNN splits its sums by thread), by as
-    much as the train-step comparisons' bounds: those tests run the
-    port's side on `HOST_THREADS`, the arithmetic their bounds were set
-    on."""
+    """torch on `n` threads inside the block: a train step's f32 result
+    depends on the thread count (oneDNN splits its sums by thread), so a
+    comparison with a data-parallel rank (one thread) runs in its
+    arithmetic."""
     before = torch.get_num_threads()
     torch.set_num_threads(n)
     try:
@@ -188,3 +183,56 @@ def self_sensitivity(net, batch, loss_cfg):
             {n: float((g1[n] - g0[n]).norm() / g0[n].norm()) for n in g0
              if n not in dcn_biases},
             {n: float((b1[n] - b0[n]).abs().max()) for n in b0})
+
+
+def f64(tree):
+    """A tree of arrays with every floating leaf as f64 numpy."""
+    return jax.tree.map(
+        lambda a: np.asarray(a, np.float64) if np.asarray(a).dtype.kind == "f"
+        else np.asarray(a), tree)
+
+
+def jax_step_f64(arch, heads, head_conv: int, hw, lr: float, loss_kw,
+                 variables, batch):
+    """One step of the JAX package's train step in f64 (the model of
+    `arch` built with dtype float64 under jax.enable_x64) from `variables`
+    on the host `batch`: (its stats, its gradients, and its parameters
+    and BatchNorm statistics after the step), the last two as port
+    state_dicts.  The DCN mode is CENTERPOLY_PALLAS_DCN's as the step is
+    traced."""
+    from centerpoly_tpu.losses import PolydetLossConfig
+    from centerpoly_tpu.models import create_model
+    from centerpoly_tpu.train import state as jstate
+    from centerpoly_tpu.train.step import make_train_step
+    from centerpoly_tpu_torch.weights import state_dict_from_jax
+
+    variables, batch = f64(variables), f64(batch)
+    with jax.enable_x64(True):
+        model = create_model(arch, heads, head_conv, dtype=jnp.float64)
+        st = jstate.create_train_state(model, jax.random.PRNGKey(0),
+                                       (1, *hw, 3), base_lr=lr,
+                                       fast_init=True)
+        params = jax.tree.map(jnp.asarray, variables["params"])
+        st = st.replace(params=params, opt_state=st.tx.init(params),
+                        batch_stats=jax.tree.map(jnp.asarray,
+                                                 variables["batch_stats"]))
+        st, stats = make_train_step(PolydetLossConfig(**loss_kw))(
+            st, jax.tree.map(jnp.asarray, batch))
+        assert jax.tree.leaves(st.params)[0].dtype == jnp.float64
+        # Adam's first moment after one step is (1 - b1) g
+        mu = jax.tree.map(lambda m: np.asarray(m) / 0.1,
+                          st.opt_state[0][0].mu)
+        after = jax.tree.map(np.asarray, {"params": st.params,
+                                          "batch_stats": st.batch_stats})
+        stats = {k: float(v) for k, v in stats.items()}
+    return (stats, state_dict_from_jax({"params": mu}, arch),
+            state_dict_from_jax(after, arch))
+
+
+def port_batch_f64(batch):
+    """A host batch as the port's step takes it, in f64 (train/step.py's
+    to_device casts to f32)."""
+    out = {k: torch.as_tensor(v) for k, v in f64(
+        {k: v for k, v in batch.items() if k != "meta"}).items()}
+    out["input"] = out["input"].permute(0, 3, 1, 2)
+    return out
