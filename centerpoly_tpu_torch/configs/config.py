@@ -154,6 +154,12 @@ class Config:
     no_reorder_flip: bool = False
     no_color_aug: bool = False
 
+    # debug views of the detector (ref opts.py:19-24): 0 = off, 1-3 =
+    # compose the heat-map blend and the detection overlay, 4 = also save
+    # every view to debug_dir as PNG (infer/detector.py::_debug_views)
+    debug: int = 0
+    debug_dir: str = "debug"
+
     # test
     test_scales: Tuple[float, ...] = (1.0,)
     nms: bool = False

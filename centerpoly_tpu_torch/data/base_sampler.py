@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..geometry.affine import get_affine_transform
-from ..utils.png import read_frame
+from ..utils.png import read_image
 from .coco_poly import CocoPolyAnnotations
 
 # Cityscapes PCA colour-aug eigen decomposition
@@ -114,26 +114,15 @@ class BaseSampler:
         return len(self.images)
 
     def _load_image(self, img_id: int) -> np.ndarray:
-        """An HWC uint8 frame: `.npy` files are read with numpy, PNG with
-        utils/png.py (BGR, as cv2.imread gives it), JPEG with cv2 (raises
-        where cv2 is missing); a missing file gives the JAX package's
-        deterministic noise of the annotated size."""
+        """An HWC uint8 frame through utils/png.py::read_image (`.npy`
+        with numpy, PNG in numpy, JPEG with cv2, which raises where cv2 is
+        missing); a missing file gives the JAX package's deterministic
+        noise of the annotated size.  A file that exists but cannot be
+        decoded raises (the JAX package takes noise for it too)."""
         info = self.coco.load_img(img_id)
         path = os.path.join(self.img_dir or "", info["file_name"])
         if os.path.isfile(path):
-            if path.endswith(".npy"):
-                return np.load(path)
-            if path.lower().endswith(".png"):
-                return read_frame(path)
-            try:
-                import cv2
-            except ImportError as e:
-                raise RuntimeError(
-                    f"{path}: decoding JPEG needs cv2, which is not "
-                    f"installed; store frames as .png or .npy instead") from e
-            img = cv2.imread(path)
-            if img is not None:
-                return img
+            return read_image(path)
         h = info.get("height", self.fallback_hw[0])
         w = info.get("width", self.fallback_hw[1])
         r = np.random.RandomState(img_id % (2 ** 31))

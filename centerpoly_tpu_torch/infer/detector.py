@@ -12,7 +12,8 @@ On the host: the inverse affine back to source coordinates and the merge.
 `run_batch(images)` runs one forward over a stack of frames, or, with a
 list of devices, one replica of the net per device (the JAX package's
 `mesh`); `run_stream(frames)` pipelines a stream of them (several in
-flight).
+flight).  With `cfg.debug > 0`, `run` also composes the debug views
+(utils/debugger.py) from its own forward.
 """
 from __future__ import annotations
 
@@ -166,8 +167,12 @@ class BaseDetector:
     def _heads(self, images, model=None):
         return (model or self.model)(images)[-1]
 
-    def _process_device(self, images, model=None):
+    def _decode(self, heads):
+        """The head maps of one forward (NCHW) -> decoded detections."""
         raise NotImplementedError
+
+    def _process_device(self, images, model=None):
+        return self._decode(self._heads(images, model))
 
     # -- host orchestration ---------------------------------------------
 
@@ -220,7 +225,8 @@ class BaseDetector:
             images = self._pre_device(frame, trans,
                                       (meta["inp_h"], meta["inp_w"]))
             timer.stage("pre", fence=images)
-            dets = self._process_device(images)
+            heads = self._heads(images)
+            dets = self._decode(heads)
             timer.stage("net", fence=dets)
             dets_host = dets.cpu().numpy()
             timer.stage("dec")
@@ -229,6 +235,8 @@ class BaseDetector:
 
         results = self.merge_outputs(detections)
         timer.stage("merge")
+        if self.cfg.debug > 0:
+            self._debug_views(image, images, heads, results)
         times = timer.times
         return {"results": results, "tot": sum(times.values()),
                 **{k: times.get(k, 0.0) for k in
@@ -342,6 +350,43 @@ class BaseDetector:
         return [{"results": self.merge_outputs(d)}
                 for d in per_frame[:len(images)]]
 
+    def _debug_views(self, image, images, heads, results):
+        """Compose the debug views of the last scale's forward (ref
+        base_detector debug flow + detectors/polydet.py:78-100):
+        `pred_hm`, the sigmoid of the heat-map head of that same forward
+        blended over the network input, and `detections`, the rows above
+        vis_thresh drawn on the frame; level 4 saves both to
+        cfg.debug_dir.  The composed views stay in `self.debugger`."""
+        from ..utils.debugger import Debugger
+
+        cfg = self.cfg
+        dbg = Debugger(num_classes=self.num_classes,
+                       class_names=None, down_ratio=cfg.down_ratio)
+        inp = images[0].float().permute(1, 2, 0).cpu().numpy()
+        img = (inp * np.asarray(cfg.std) + np.asarray(cfg.mean)) * 255.0
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        # exdet's net has no fused "hm" head: its centre heat map is "hm_c"
+        # (ref debuggers show hm_t/l/b/r separately)
+        hm_key = ("hm" if "hm" in heads
+                  else "hm_c" if "hm_c" in heads else None)
+        if hm_key is not None:
+            hm = torch.sigmoid(heads[hm_key][0].float()).permute(1, 2, 0)
+            dbg.add_blend_img(img, dbg.gen_colormap(hm.cpu().numpy()),
+                              "pred_hm")
+        dbg.add_img(image.astype(np.uint8), img_id="detections")
+        for j, rows in results.items():
+            for row in np.asarray(rows):
+                if row[4] > cfg.vis_thresh:
+                    if len(row) > 6:
+                        dbg.add_polydet(row[5:-1], int(j) - 1, row[4],
+                                        img_id="detections")
+                    else:
+                        dbg.add_coco_bbox(row[:4], int(j) - 1, row[4],
+                                          img_id="detections")
+        if cfg.debug >= 4:
+            dbg.save_all_imgs(cfg.debug_dir)
+        self.debugger = dbg
+
     def merge_outputs(self, detections):
         """Concat scales + optional soft-NMS + global top-K score cut
         (ref detectors/polydet.py:62-76)."""
@@ -365,10 +410,10 @@ class BaseDetector:
 class PolydetDetector(BaseDetector):
     """Polygon instance detector (ref detectors/polydet.py)."""
 
-    def _process_device(self, images, model=None):
+    def _decode(self, heads):
         cfg = self.cfg
         out = {k: v.float().permute(0, 2, 3, 1)
-               for k, v in self._heads(images, model).items()}   # NHWC views
+               for k, v in heads.items()}                       # NHWC views
         hm = torch.sigmoid(out["hm"])
         poly = out["poly"]
         depth = out["pseudo_depth"]

@@ -15,8 +15,8 @@ this model and frame (the JAX package's tools/analyze_dcn_offsets.py).
         --arch dla_34 --load_model model.pth --demo frame.npy [--r 4] \\
         [--device cpu]
 
-`--demo` takes an HWC uint8 RGB `.npy` frame, or an image file that cv2
-(or PIL) can read.  With no `--demo`, a fixed random frame is used
+`--demo` takes an HWC uint8 RGB `.npy` frame, or an image file that
+utils/png.py::read_image reads (PNG in numpy, other formats with cv2).  With no `--demo`, a fixed random frame is used
 (meaningful only for a loaded checkpoint: a fresh init has zero offsets).
 Runs on the card unless `--device cpu` is given.
 """
@@ -28,6 +28,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from ..utils.png import read_image
 
 
 def offset_stats(offsets: Mapping[str, np.ndarray], r: float) -> list:
@@ -92,19 +94,11 @@ def collect(cfg, variables=None, image=None, device=None
 
 
 def read_frame(path: str) -> np.ndarray:
-    """HWC uint8 RGB frame from a `.npy` file, or from an image file
-    through cv2 (BGR, flipped) or PIL."""
+    """HWC uint8 RGB frame from a `.npy` file as it is, or from an image
+    file through utils/png.py::read_image (BGR, flipped)."""
     if path.endswith(".npy"):
         return np.load(path)
-    try:
-        import cv2
-    except ImportError:
-        from PIL import Image
-        return np.asarray(Image.open(path).convert("RGB"))
-    image = cv2.imread(path)
-    if image is None:
-        raise SystemExit(f"cannot read image: {path}")
-    return image[:, :, ::-1]
+    return np.ascontiguousarray(read_image(path)[:, :, ::-1])
 
 
 def main(argv=None) -> list:

@@ -11,7 +11,10 @@ those calls did:
     types 0 (8 and 16 bit), 2 and 6 (8 bit): (H, W) uint8 / uint16,
     (H, W, 3) or (H, W, 4) uint8;
   * `read_frame(path)` / `write_frame(path, bgr)`: what `cv2.imread` /
-    `cv2.imwrite` do with a frame: BGR, 3 channels, uint8.
+    `cv2.imwrite` do with a frame: BGR, 3 channels, uint8;
+  * `read_image(path)`: the frame reader of the sampler and the inference
+    CLIs: `.npy` with numpy, PNG with `read_frame`, anything else with
+    cv2, imported only there.
 
 Every row filter (None, Sub, Up, Average, Paeth) decodes.  Average and
 Paeth take the decoded pixel to the left, so a row cannot be undone in one
@@ -226,6 +229,28 @@ def read_frame(path: str) -> np.ndarray:
     if a.ndim == 2:
         return np.repeat(a[:, :, None], 3, axis=2)
     return np.ascontiguousarray(a[:, :, 2::-1])
+
+
+def read_image(path: str) -> np.ndarray:
+    """An HWC uint8 frame: `.npy` as numpy saved it, PNG through
+    `read_frame` (BGR, as cv2.imread gives it), JPEG and the rest through
+    cv2.imread, which is imported here only.  Raises RuntimeError naming
+    cv2 where a non-PNG image needs it and it is missing, and ValueError
+    for a file that cannot be decoded."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    if path.lower().endswith(".png"):
+        return read_frame(path)
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path}: decoding this image needs cv2, which is not "
+            f"installed; store frames as .png or .npy instead") from e
+    img = cv2.imread(path)
+    if img is None:
+        raise ValueError(f"{path}: cv2 cannot decode this image")
+    return img
 
 
 def read_mask(path: str) -> np.ndarray:

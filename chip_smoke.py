@@ -7,7 +7,8 @@ kernels against their plain PyTorch versions.
 The main paths are DLA-34 polydet inference on 2048x1024 Cityscapes frames
 at full width (8 classes, 16 vertices, head_conv 256, 512x1024 network
 input), seeded random weights, through `create_detector(...).run`,
-`run_batch` and `run_stream`; and polydet training at the same width
+`run_batch` and `run_stream`, and the demo, video and CSV entry points
+beside them; and polydet training at the same width
 through `centerpoly_tpu_torch.main` on a synthetic 2048x1024 fixture
 (batch 4, f32, the paper's v2 loss); each in the DCN modes `off` (exact),
 `rowband:R` and `halo:4`.  Then the same two paths on smallhourglass and
@@ -127,7 +128,23 @@ with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Phases
      --arch resdcn_101` for an epoch of 2 steps at batch 4, one counted
      step, its step p50, peak memory and one profiled step; then res_18,
      res_101 and dlav0_34, one f32 forward each against the CPU port, no
-     DCN launch.
+     DCN launch;
+ 17. the image demo and the video loops (`phase_demo`), DLA-34 bf16
+     rowband:6 on phase 4's weights: `infer/demo.py` main on a 2048x1024
+     PNG with --save_overlay and --debug 4 (16 launches; the overlay,
+     detections.png and pred_hm.png read back), the host time of
+     `_debug_views`, and `run_video`'s three loops (per frame, batched by
+     4, pipelined) over an in-memory capture of 8 seeded frames, each
+     frame's results against `run`'s, and each loop's frames/s;
+ 18. `infer/run_on_csv.py` (`phase_run_on_csv`) over 6 PNG frames at
+     2048x1024 and 2 at 1242x375, --eval_batch 1 and 4 (the flush on the
+     change of shape), bf16 and f32, 16 rowband launches a frame, the rows
+     of the two batch sizes held together, and frames/s;
+ 19. the oracle-free convergence harness (`phase_convergence`,
+     tools/train_convergence.py): res_18 to AP50 >= 0.5 and AP > 0.15;
+     dla_34 (exact forward and backward kernels in every step) to AP50 >=
+     0.5, its AP50 under rowband:4 on the same weights and the learned
+     offsets' saturation at R = 4; one dla_34 step's launches (16 + 16).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -2448,6 +2465,348 @@ def phase_sharded_run_batch(card):
     return counts["rowband"]
 
 
+# ---- phases 17-19: the rest of polydet serving and the convergence
+#      harness
+
+VIDEO_FRAMES = 8        # frames of the in-memory capture of phase 17
+CSV_SHAPES = [FRAME_HW] * 6 + [(375, 1242)] * 2     # phase 18's frames
+CONV_DIR = "convergence"
+
+
+class MemoryCapture:
+    """cv2.VideoCapture's read / get / release over frames in memory (the
+    card's machine has no cv2 to decode a video file)."""
+
+    def __init__(self, frames):
+        self.frames = list(frames)
+
+    def read(self):
+        return (True, self.frames.pop(0)) if self.frames else (False, None)
+
+    def get(self, prop):
+        return 0.0
+
+    def release(self):
+        self.frames = []
+
+
+def serving_config(**kw):
+    """A Config as the inference CLIs resolve it: rowband:6 on DLA-34."""
+    from centerpoly_tpu_torch.configs import Config
+    cfg = Config(**kw)
+    check(cfg.prefer_fast_inference_dcn() and cfg.dcn_kernel == "rowband:6",
+          f"inference default is {cfg.dcn_kernel}, not rowband:6")
+    return cfg
+
+
+def same_results(a, b):
+    return set(a) == set(b) and all(
+        np.array_equal(np.asarray(a[j]), np.asarray(b[j])) for j in a)
+
+
+def phase_demo(sd, root, card):
+    """Phase 17: the image demo and the video loops on DLA-34 at full
+    width, bf16, rowband:6, phase 4's weights.  `demo.main` on a 2048x1024
+    PNG with --save_overlay --debug 4 (16 rowband launches): the overlay
+    and detections.png read back at frame size, pred_hm.png at the
+    network's input size (the JAX package blends the heat map over the
+    network input); the host time of `_debug_views` at level 4; then
+    `run_video`'s three loops (`video_results`: per frame, batched by 4,
+    pipelined) over an in-memory capture of 8 seeded frames, cuDNN on its
+    deterministic algorithms: the per-frame and pipelined loops equal to
+    `run` frame by frame, the batched one to `run_batch` over the same
+    stacks, and in f32 (TF32 off) within `results_agree`'s bounds of
+    `run`; each loop's frames/s, warm."""
+    import torch
+    from centerpoly_tpu_torch.infer import demo
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.utils.png import read_frame, write_frame
+
+    droot = os.path.join(root, "demo")
+    os.makedirs(droot)
+    weights = os.path.join(droot, "dla34.pth")
+    torch.save({"state_dict": sd}, weights)
+    # phase 4's seeded frames (its 4), and more of them
+    frames = [np.random.RandomState(SEED + i).randint(
+        0, 256, (*FRAME_HW, 3), dtype=np.uint8) for i in range(VIDEO_FRAMES)]
+    png = os.path.join(droot, "frame0.png")
+    write_frame(png, frames[0])
+    debug_dir = os.path.join(droot, "debug")
+    zero_counts()
+    demo.main(["polydet", "--demo", png, "--load_model", weights,
+               "--save_overlay", "--debug", "4", "--debug_dir", debug_dir])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    check(counts == {"rowband": 16}, f"demo: launches {counts}")
+    inp_hw = (FRAME_HW[0] // 2, FRAME_HW[1] // 2)
+    for path, hw in ((os.path.join(droot, "frame0_polydet.png"), FRAME_HW),
+                     (os.path.join(debug_dir, "detections.png"), FRAME_HW),
+                     (os.path.join(debug_dir, "pred_hm.png"), inp_hw)):
+        img = read_frame(path)
+        check(img.shape == (*hw, 3), f"{path}: {img.shape}, not {hw}")
+    print(f"[demo] demo.main --save_overlay --debug 4: 16 rowband launches; "
+          f"overlay and detections.png {FRAME_HW[1]}x{FRAME_HW[0]}, "
+          f"pred_hm.png {inp_hw[1]}x{inp_hw[0]}")
+
+    det = create_detector(serving_config(debug=4, debug_dir=debug_dir), sd)
+    views, spent = det._debug_views, []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        views(*args)
+        spent.append(1e3 * (time.perf_counter() - t0))
+
+    det._debug_views = timed
+    for frame in frames[:4]:
+        det.run(frame)
+    print(f"[demo] _debug_views at level 4 (compose + 2 PNG writes), host: "
+          f"{statistics.median(spent[1:]):.1f} ms median of "
+          f"{len(spent) - 1} frames after one warm-up ({card})")
+
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    det = create_detector(serving_config(), sd)
+    runs = [det.run(f)["results"] for f in frames]
+    loops = {"per frame": (1, False), "batched by 4": (4, False),
+             "pipelined": (1, True)}
+    for label, (batch, stream) in loops.items():
+        list(demo.video_results(det, MemoryCapture(frames), batch, stream))
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        got = list(demo.video_results(det, MemoryCapture(frames), batch,
+                                      stream))
+        torch.cuda.synchronize()
+        rate = len(got) / (time.perf_counter() - t0)
+        forwards = VIDEO_FRAMES // batch
+        check(len(got) == VIDEO_FRAMES
+              and dict(dcn.launches)["rowband"] == 16 * forwards
+              and sum(dcn.launches.values()) == 16 * forwards,
+              f"video loop {label}: {len(got)} frames, launches "
+              f"{dict(dcn.launches)}")
+        check(all(np.array_equal(img, f) for (img, _), f in zip(got, frames)),
+              f"video loop {label}: frames out of order")
+        if batch > 1:
+            # bf16 at batch 4 runs other convolution algorithms than at 1,
+            # and the random net amplifies that (bf16 heads part from f32
+            # by ~0.5 of their range, phase 4): held to run_batch over the
+            # same stacks here, and to run in f32 below
+            stacks = [r["results"] for i in range(0, VIDEO_FRAMES, batch)
+                      for r in det.run_batch(frames[i:i + batch])]
+            check(all(same_results(r["results"], want)
+                      for (_, r), want in zip(got, stacks)),
+                  f"video loop {label}: results differ from run_batch's")
+            agree = "equal to run_batch's over the same stacks"
+        else:
+            check(all(same_results(r["results"], want)
+                      for (_, r), want in zip(got, runs)),
+                  f"video loop {label}: results differ from run()")
+            agree = "equal to run's"
+        print(f"[demo] video loop {label}: {len(got)} frames, "
+              f"{16 * forwards} rowband launches, results {agree}; "
+              f"{rate:.3f} frames/s warm ({card})")
+    n = demo.run_video(det, MemoryCapture(frames), batch=4)
+    check(n == VIDEO_FRAMES, f"run_video served {n} frames")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    det32 = create_detector(serving_config(mixed_precision=False), sd)
+    got = list(demo.video_results(det32, MemoryCapture(frames), 4))
+    ds, dc = results_agree({i: det32.run(f)["results"]
+                            for i, f in enumerate(frames)},
+                           {i: r["results"] for i, (_, r) in enumerate(got)},
+                           ("run", "the batched video loop"))
+    print(f"[demo] f32 (TF32 off) batched video loop against run: the top "
+          f"{EVAL_TOP} rows of each frame found (largest differences: "
+          f"score {ds:.2e}, box and vertices {dc:.3f} px)")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+        tf32)
+    torch.backends.cudnn.deterministic = flags
+    return weights
+
+
+def csv_rows_agree(a, b, score_tol, px_tol):
+    """Two run_on_csv outputs (lists of CSV lines) hold the same rows: each
+    row of `a` has its own row of `b` with the same path and label, its
+    score within `score_tol` and every integer within `px_tol`.  Returns
+    the largest score and integer differences of the matched rows."""
+    def parse(lines):
+        rows = {}
+        for line in lines:
+            f = line.split(",")
+            rows.setdefault((f[0], f[5]), []).append(
+                (float(f[6]), np.array([int(v) for v in f[1:5] + f[7:]])))
+        return rows
+
+    ra, rb = parse(a), parse(b)
+    check(ra.keys() == rb.keys() and all(len(ra[k]) == len(rb[k])
+                                         for k in ra),
+          "run_on_csv outputs differ in paths, labels or row counts")
+    ds = di = 0.0
+    for key, rows in ra.items():
+        free = list(rb[key])
+        for score, ints in rows:
+            cand = [(abs(s - score), np.abs(v - ints).max(), i)
+                    for i, (s, v) in enumerate(free)
+                    if abs(s - score) <= score_tol
+                    and np.abs(v - ints).max() <= px_tol]
+            check(bool(cand), f"run_on_csv: a {key} row of score {score} has "
+                  f"no counterpart")
+            d_s, d_i, i = min(cand, key=lambda c: c[1])
+            ds, di = max(ds, d_s), max(di, d_i)
+            free.pop(i)
+    return ds, int(di)
+
+
+def phase_run_on_csv(sd, weights, root, card):
+    """Phase 18: `run_on_csv.main` over 6 PNG frames at 2048x1024 and 2 at
+    1242x375 (a CSV with a repeated path), DLA-34, phase 4's weights:
+    bf16 rowband:6 at --eval_batch 1 and 4, the launch counts zeroed
+    before each (16 rowband launches a frame at eval_batch 1; at 4, 16 a
+    run_batch: 4 + 2 frames of the first shape, then the flush on the
+    change of shape, 2 of the second); in f32 (TF32 off) the two runs'
+    rows agree to integers within 1 and scores within 1e-3 (bf16 at
+    another batch runs other algorithms, which the random net amplifies:
+    see phase 17); then frames/s of the
+    bf16 serving loop (`serve_csv`, PNG decode included) on a warm
+    detector at each batch."""
+    import torch
+    from centerpoly_tpu_torch.data import CityscapesMeta
+    from centerpoly_tpu_torch.infer import run_on_csv
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.utils.png import write_frame
+
+    croot = os.path.join(root, "csv")
+    os.makedirs(croot)
+    paths = []
+    for i, hw in enumerate(CSV_SHAPES):
+        path = os.path.join(croot, f"frame{i}.png")
+        write_frame(path, np.random.RandomState(SEED + 100 + i).randint(
+            0, 256, (*hw, 3), dtype=np.uint8))
+        paths.append(path)
+    source = os.path.join(croot, "in.csv")
+    with open(source, "w") as f:
+        f.writelines(f"{p},0,0,10,10,car\n" for p in paths[::-1] + paths[:1])
+    base = ["polydet", "--source_csv", source, "--load_model", weights]
+    outs, per_frame = {}, None
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for dtype, extra in (("bf16", []), ("f32", ["--no_mixed_precision"])):
+        for bs in (1, 4):
+            target = os.path.join(croot, f"out_{dtype}_{bs}.csv")
+            zero_counts()
+            run_on_csv.main(base + extra + ["--eval_batch", str(bs),
+                                            "--target_csv", target])
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in dcn.launches.items() if v}
+            forwards = len(paths) if bs == 1 else 3
+            if (dtype, bs) == ("bf16", 1):
+                per_frame = counts.get("rowband", 0) // len(paths)
+            check(counts == {"rowband": 16 * forwards},
+                  f"run_on_csv {dtype} eval_batch {bs}: launches {counts}, "
+                  f"expected {16 * forwards} rowband")
+            with open(target) as f:
+                outs[dtype, bs] = f.read().splitlines()
+            check(len(outs[dtype, bs]) == 128 * len(paths)
+                  and sorted({r.split(",")[0] for r in outs[dtype, bs]})
+                  == sorted(paths), f"run_on_csv {dtype} eval_batch {bs}: "
+                  f"{len(outs[dtype, bs])} rows")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+        tf32)
+    print(f"[csv] run_on_csv bf16 and f32, eval_batch 1 and 4: "
+          f"{len(paths)} frames (2 shapes), {128 * len(paths)} rows each, "
+          f"16 rowband launches a frame at 1 and a run_batch at 4")
+    ds, di = csv_rows_agree(outs["f32", 1], outs["f32", 4], 1e-3, 1)
+    print(f"[csv] run_on_csv f32 (TF32 off) eval_batch 1 and 4: rows agree "
+          f"(largest differences: score {ds:.2e}, integers {di})")
+
+    det = create_detector(serving_config(), sd)
+    names = CityscapesMeta.class_name[1:]
+    for bs in (1, 4):
+        target = os.path.join(croot, f"rate_{bs}.csv")
+        run_on_csv.serve_csv(det, paths, target, bs, names)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = run_on_csv.serve_csv(det, paths, target, bs, names)
+        torch.cuda.synchronize()
+        print(f"[csv] serve_csv bf16 eval_batch {bs}, warm: "
+              f"{n / (time.perf_counter() - t0):.3f} frames/s over {n} "
+              f"frames (PNG decode included) ({card})")
+    return per_frame
+
+
+def phase_convergence(root, card):
+    """Phase 19: the oracle-free convergence harness
+    (tools/train_convergence.py) on the card, f32: res_18 with
+    tests/test_convergence.py's arguments (cartesian / L1, up to 40
+    epochs, 8 images at 128x256, batch 4, lr 2.5e-4, AP every 5 epochs)
+    must reach AP50 >= 0.5 with AP > 0.15; dla_34 (cartesian / L1, `off`:
+    the exact CUDA forward and backward at every step, up to 60 epochs)
+    must reach AP50 >= 0.5, then its trained weights are scored again
+    under rowband:4 (no retraining) and their learned offsets measured
+    against R = 4; and one dla_34 train step of the same harness with the
+    launch counts zeroed just before and read just after (16 + 16)."""
+    import contextlib
+    import io
+    import torch
+    from centerpoly_tpu_torch.tools import train_convergence as tconv
+
+    croot = os.path.join(root, CONV_DIR)
+    out = sys.stdout
+    common = dict(rep="cartesian", poly_loss="l1", n_images=8, input_h=128,
+                  input_w=256, batch_size=4, lr=2.5e-4, bar=0.5,
+                  val_every=5, log=lambda msg: print(f"[conv]   {msg}",
+                                                     file=out))
+
+    def quiet(**kw):
+        """tconv.run with the Trainer's per-epoch lines held back."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return tconv.run(**kw, **common)
+
+    # cuDNN on its deterministic algorithms: the trajectory (and the AP
+    # it reaches) repeats from run to run on a card
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    res = quiet(arch="res_18", epochs=40, root=os.path.join(croot, "res"))
+    traj = [(t["epoch"], round(t["ap"], 4), round(t["ap50"], 4))
+            for t in res["ap_trajectory"]]
+    print(f"[conv] res_18: AP50 {res['final_ap50']!r} AP {res['final_ap']!r} "
+          f"after {res['steps']} steps, {res['wall_s']} s wall; trajectory "
+          f"(epoch, AP, AP50) {traj} ({card})")
+    check(res["passed"] and res["final_ap"] > 0.15,
+          f"res_18 did not converge: AP50 {res['final_ap50']}, AP "
+          f"{res['final_ap']}")
+    res = quiet(arch="dla_34", epochs=60, root=os.path.join(croot, "dla"),
+                eval_dcn=f"rowband:{TRAIN_R}", offset_r=TRAIN_R)
+    traj = [(t["epoch"], round(t["ap"], 4), round(t["ap50"], 4))
+            for t in res["ap_trajectory"]]
+    worst = max(res["offset_stats"], key=lambda r: r["y_frac_clamped_at_r"])
+    print(f"[conv] dla_34 (off): AP50 {res['final_ap50']!r} AP "
+          f"{res['final_ap']!r} after {res['steps']} steps, {res['wall_s']} s "
+          f"wall; trajectory (epoch, AP, AP50) {traj}; the same weights "
+          f"under rowband:{TRAIN_R}: AP50 {res['eval_dcn_ap50']!r} (delta "
+          f"{res['eval_dcn_ap50_delta']:+.6f}), AP {res['eval_dcn_ap']!r}; "
+          f"offsets: worst node {worst['node']} y_frac_clamped_at_r "
+          f"{res['worst_node_frac_y_clamped']} (y_p99 {worst['y_p99']}, "
+          f"y_max {worst['y_max']}) ({card})")
+    check(res["passed"], f"dla_34 did not converge: AP50 "
+          f"{res['final_ap50']}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        tr, _, _ = tconv.make_trainer(os.path.join(croot, "step"), "dla_34")
+    counts = step_launches(tr, 16)
+    print(f"[conv] one dla_34 train step of the harness: {counts}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    del tr
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import argparse
     import tempfile
@@ -2497,6 +2856,9 @@ def main() -> int:
         resdcn101 = phase_resdcn101(frames, root)
         phase_eval(root, card)
         dp = phase_data_parallel(root, card)
+        weights = phase_demo(sd, root, card)
+        csv_launches = phase_run_on_csv(sd, weights, root, card)
+        conv = phase_convergence(root, card)
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],
@@ -2518,6 +2880,10 @@ def main() -> int:
     kernels[0]["resdcn18_train_step_launches"] = resdcn18["step"]["exact"]
     kernels[0]["resdcn101_train_step_launches"] = resdcn101["exact"]
     kernels[1]["resdcn18_run_launches"] = resdcn18["run"]
+    # phases 18 and 19: rowband launches a frame of run_on_csv, and the
+    # launches of one dla_34 step of the convergence harness
+    kernels[1]["run_on_csv_launches"] = csv_launches
+    kernels[0]["convergence_dla34_train_step_launches"] = conv["exact"]
     for k, mode in zip(kernels, FWD_CLAMPS):
         node, node32 = resdcn_node["fwd"][mode], resdcn_node["fwd_f32"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})
@@ -2538,6 +2904,7 @@ def main() -> int:
     kernels[3]["dp_rank_step_launches"] = dp["dp"]["bwd_exact"]
     kernels[3]["resdcn18_train_step_launches"] = resdcn18["step"]["bwd_exact"]
     kernels[3]["resdcn101_train_step_launches"] = resdcn101["bwd_exact"]
+    kernels[3]["convergence_dla34_train_step_launches"] = conv["bwd_exact"]
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         node = resdcn_node["bwd"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})

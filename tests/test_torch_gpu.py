@@ -500,6 +500,86 @@ def test_eval_cli_on_card(cuda, tmp_path, monkeypatch, eval_batch):
     assert np.isfinite(out["ap"]["allAp"])
 
 
+class _MemoryCapture:
+    """cv2.VideoCapture's read / get / release over frames in memory."""
+
+    def __init__(self, frames):
+        self.frames = list(frames)
+
+    def read(self):
+        return (True, self.frames.pop(0)) if self.frames else (False, None)
+
+    def get(self, prop):
+        return 0.0
+
+    def release(self):
+        self.frames = []
+
+
+@pytest.mark.parametrize("batch,stream", [(1, False), (2, False), (1, True)],
+                         ids=["per_frame", "batched", "pipelined"])
+def test_video_loops_on_card(cuda, batch, stream):
+    """The demo's video loops on the card (bf16, rowband:6) over an
+    in-memory capture: 16 rowband launches a forward, frames in order,
+    the per-frame and pipelined loops equal to `run`."""
+    from centerpoly_tpu_torch.infer import demo
+    cfg = Config(input_h=64, input_w=128, head_conv=32, K=16)
+    assert cfg.prefer_fast_inference_dcn()      # the CLIs' rowband:6
+    det = create_detector(cfg)
+    rng = np.random.RandomState(0)
+    frames = [rng.randint(0, 256, (128, 256, 3), dtype=np.uint8)
+              for _ in range(4)]
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [det.run(f)["results"] for f in frames]
+        before = dcn.launches["rowband"]
+        got = list(demo.video_results(det, _MemoryCapture(frames), batch,
+                                      stream))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = flags
+    assert dcn.launches["rowband"] == before + 16 * 4 // batch
+    assert all(np.array_equal(img, f) for (img, _), f in zip(got, frames))
+    for (_, ret), want in zip(got, runs):
+        for j in want:
+            if batch == 1:
+                np.testing.assert_array_equal(ret["results"][j], want[j])
+            else:
+                assert ret["results"][j].shape == want[j].shape
+
+
+def test_image_demo_and_csv_on_card(cuda, tmp_path):
+    """`read_image` frames (PNG, .npy) through the image demo with
+    --save_overlay --debug 4 and through run_on_csv on the card."""
+    from centerpoly_tpu_torch.infer import demo, run_on_csv
+    from centerpoly_tpu_torch.utils.png import read_frame, read_image, \
+        write_frame
+    frame = np.random.RandomState(1).randint(0, 256, (128, 256, 3),
+                                             dtype=np.uint8)
+    png, npy = str(tmp_path / "f.png"), str(tmp_path / "f.npy")
+    write_frame(png, frame)
+    np.save(npy, frame)
+    assert np.array_equal(read_image(png), frame)
+    assert np.array_equal(read_image(npy), frame)
+    args = ["polydet", "--input_h", "64", "--input_w", "128", "--head_conv",
+            "32", "--K", "16"]
+    before = dcn.launches["rowband"]
+    demo.main(args + ["--demo", png, "--save_overlay", "--debug", "4",
+                      "--debug_dir", str(tmp_path / "dbg")])
+    assert dcn.launches["rowband"] == before + 16
+    assert read_frame(str(tmp_path / "f_polydet.png")).shape == frame.shape
+    assert read_frame(str(tmp_path / "dbg" / "detections.png")).shape == \
+        frame.shape
+    src = tmp_path / "in.csv"
+    src.write_text(f"{png}\n{npy}\n")
+    run_on_csv.main(args + ["--source_csv", str(src), "--target_csv",
+                            str(tmp_path / "out.csv"), "--eval_batch", "2"])
+    rows = (tmp_path / "out.csv").read_text().splitlines()
+    assert len(rows) == 2 * 16 and {r.split(",")[0] for r in rows} == {png,
+                                                                     npy}
+
+
 # -- data parallelism on the card ---------------------------------------------
 
 DP_LR = 2e-4

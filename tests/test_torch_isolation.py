@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it (every module) pulls in
 neither JAX nor the JAX package, and no source names either; nor does
-chip_smoke.py, which runs where JAX is not installed.  Its eval path runs
-without PIL and cv2, which that machine lacks too."""
+chip_smoke.py, which runs where JAX is not installed.  Every module
+imports, and its eval path runs, without PIL and cv2, which that machine
+lacks too."""
 import os
 import subprocess
 import sys
@@ -34,6 +35,18 @@ def test_import_pulls_in_no_jax():
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 20
+
+
+def test_import_needs_no_cv2_or_pil():
+    """Every module imports with cv2 and PIL unimportable: cv2 is imported
+    only inside the functions that decode video or JPEG, write video or
+    open a window."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = 'import sys\nsys.modules["PIL"] = sys.modules["cv2"] = None\n'
+    proc = subprocess.run([sys.executable, "-c", code + _IMPORT_ALL],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 _EVAL_WITHOUT_PIL_CV2 = """
