@@ -116,13 +116,17 @@ class BaseSampler:
     def _load_image(self, img_id: int) -> np.ndarray:
         """An HWC uint8 frame through utils/png.py::read_image (`.npy`
         with numpy, PNG in numpy, JPEG with cv2, which raises where cv2 is
-        missing); a missing file gives the JAX package's deterministic
-        noise of the annotated size.  A file that exists but cannot be
-        decoded raises (the JAX package takes noise for it too)."""
+        missing); a missing file, or one that cv2 cannot decode, gives the
+        JAX package's deterministic noise of the annotated size.  A PNG
+        the numpy reader refuses raises: it may be one cv2 would read."""
         info = self.coco.load_img(img_id)
         path = os.path.join(self.img_dir or "", info["file_name"])
         if os.path.isfile(path):
-            return read_image(path)
+            try:
+                return read_image(path)
+            except ValueError:
+                if path.lower().endswith((".png", ".npy")):
+                    raise
         h = info.get("height", self.fallback_hw[0])
         w = info.get("width", self.fallback_hw[1])
         r = np.random.RandomState(img_id % (2 ** 31))

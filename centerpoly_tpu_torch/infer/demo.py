@@ -71,6 +71,24 @@ def open_video(source: str):
     return cam
 
 
+class MemoryCapture:
+    """cv2.VideoCapture's read / get / release over frames already in
+    memory (HWC uint8 BGR), for `video_results` and `run_video` where no
+    cv2 decodes a file."""
+
+    def __init__(self, frames):
+        self.frames = list(frames)
+
+    def read(self):
+        return (True, self.frames.pop(0)) if self.frames else (False, None)
+
+    def get(self, prop):
+        return 0.0
+
+    def release(self):
+        self.frames = []
+
+
 def video_results(detector, cam, batch: int = 1, stream: bool = False,
                   max_frames: int = 0):
     """The video loops of the reference demo.py:23-36: read frames from

@@ -218,6 +218,21 @@ def test_sampler_png_without_cv2_raises(frames_root, monkeypatch):
         os.remove(jpeg)
 
 
+def test_sampler_undecodable_jpeg_takes_the_same_noise(frames_root,
+                                                       tmp_path):
+    """A JPEG that cv2 cannot decode: both sides draw the frame from the
+    image id's seeded noise, as for a missing file."""
+    pytest.importorskip("cv2")
+    port, ref = _samplers(frames_root, "train", png=False, rep="polar")
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8")
+    for sampler in (port, ref):
+        sampler.img_dir = str(tmp_path)
+        sampler.coco.load_img(sampler.images[0])["file_name"] = "bad.jpg"
+    img = port._load_image(port.images[0])
+    np.testing.assert_array_equal(img, ref._load_image(ref.images[0]))
+    assert img.shape == (*FRAME, 3)
+
+
 # -- the loader --------------------------------------------------------------
 
 def test_loader_stacks_batches_in_order(frames_root):

@@ -500,22 +500,6 @@ def test_eval_cli_on_card(cuda, tmp_path, monkeypatch, eval_batch):
     assert np.isfinite(out["ap"]["allAp"])
 
 
-class _MemoryCapture:
-    """cv2.VideoCapture's read / get / release over frames in memory."""
-
-    def __init__(self, frames):
-        self.frames = list(frames)
-
-    def read(self):
-        return (True, self.frames.pop(0)) if self.frames else (False, None)
-
-    def get(self, prop):
-        return 0.0
-
-    def release(self):
-        self.frames = []
-
-
 @pytest.mark.parametrize("batch,stream", [(1, False), (2, False), (1, True)],
                          ids=["per_frame", "batched", "pipelined"])
 def test_video_loops_on_card(cuda, batch, stream):
@@ -534,7 +518,7 @@ def test_video_loops_on_card(cuda, batch, stream):
     try:
         runs = [det.run(f)["results"] for f in frames]
         before = dcn.launches["rowband"]
-        got = list(demo.video_results(det, _MemoryCapture(frames), batch,
+        got = list(demo.video_results(det, demo.MemoryCapture(frames), batch,
                                       stream))
         torch.cuda.synchronize()
     finally:

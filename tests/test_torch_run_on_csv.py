@@ -203,22 +203,6 @@ def test_without_cv2(tmp_path, clip, weights, monkeypatch, capsys):
         demo.run_video(create_detector(Config(arch="res_18", input_h=64,
                                               input_w=128, K=8),
                                        device="cpu"),
-                       _MemoryCapture([frame]), out_video=str(
+                       demo.MemoryCapture([frame]), out_video=str(
                            tmp_path / "x.avi"))
     assert not os.path.exists(tmp_path / "x.avi")
-
-
-class _MemoryCapture:
-    """cv2.VideoCapture's read / get / release over frames in memory."""
-
-    def __init__(self, frames):
-        self.frames = list(frames)
-
-    def read(self):
-        return (True, self.frames.pop(0)) if self.frames else (False, None)
-
-    def get(self, prop):
-        return 0.0
-
-    def release(self):
-        self.frames = []
