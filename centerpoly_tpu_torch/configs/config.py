@@ -2,7 +2,7 @@
 
 The port's own copy of the JAX package's `Config` (itself the reference's
 argparse `opts`, src/lib/opts.py:9-459), cut to the fields the inference,
-polydet training, eval and data-parallel slices read.  The DCN mode
+polydet and ctdet training, eval and data-parallel slices read.  The DCN mode
 travels to the model as the `dcn_kernel` argument; nothing here writes
 environment variables.
 """
@@ -120,6 +120,7 @@ class Config:
     rep: str = "cartesian"         # cartesian | polar | polar_fixed
     nbr_points: int = 16
     cat_spec_poly: bool = False
+    cat_spec_wh: bool = False      # ctdet: one wh pair a class
     reg_offset: bool = True
     mixed_precision: bool = True   # bf16 activations and weights on the card
 
@@ -138,6 +139,12 @@ class Config:
 
     # loss
     mse_loss: bool = False
+    reg_loss: str = "l1"           # l1 | sl1 (ctdet's wh and offset loss)
+    dense_wh: bool = False         # ctdet: wh regressed densely under the
+                                   # gaussian
+    norm_wh: bool = False          # ctdet: wh regressed relative to its target
+    hm_gauss: int = 3              # the fixed sigma of ctdet's heat map
+                                   # under mse_loss
     poly_loss: str = "l1"          # l1 | iou | l1+iou | relu
     poly_order: bool = False
     elliptical_gt: bool = True     # paper runs use it
@@ -145,6 +152,7 @@ class Config:
     off_weight: float = 1.0
     poly_weight: float = 1.0
     depth_weight: float = 0.1
+    wh_weight: float = 0.1
 
     # augmentation
     not_rand_crop: bool = False
@@ -213,7 +221,8 @@ class Config:
         self.output_w = self.input_w // self.down_ratio
         self.max_objs = 128
         self.heads = task_heads(self.task, self.num_classes, self.nbr_points,
-                                self.reg_offset, self.cat_spec_poly)
+                                self.reg_offset, self.cat_spec_poly,
+                                self.cat_spec_wh)
 
     def prefer_fast_inference_dcn(self) -> bool:
         """Default the inference entry points onto `rowband:6` when the user

@@ -62,6 +62,32 @@ def splat_gaussian(heatmap: np.ndarray, center, radius: int, k: float = 1.0):
     return heatmap
 
 
+def splat_msra_gaussian(heatmap: np.ndarray, center, sigma: float):
+    """Max-merge a fixed-sigma gaussian, MSRA pose style (ref
+    image.py:208-228); ctdet's heat map under --mse_loss (hm_gauss)."""
+    tmp_size = int(sigma * 3)
+    mu_x = int(center[0] + 0.5)
+    mu_y = int(center[1] + 0.5)
+    h, w = heatmap.shape[:2]
+    ul = [mu_x - tmp_size, mu_y - tmp_size]
+    br = [mu_x + tmp_size + 1, mu_y + tmp_size + 1]
+    if ul[0] >= w or ul[1] >= h or br[0] < 0 or br[1] < 0:
+        return heatmap
+    size = 2 * tmp_size + 1
+    x = np.arange(0, size, 1, np.float32)
+    y = x[:, np.newaxis]
+    x0 = y0 = size // 2
+    g = np.exp(-((x - x0) ** 2 + (y - y0) ** 2) / (2 * sigma ** 2))
+    g_x = max(0, -ul[0]), min(br[0], w) - ul[0]
+    g_y = max(0, -ul[1]), min(br[1], h) - ul[1]
+    img_x = max(0, ul[0]), min(br[0], w)
+    img_y = max(0, ul[1]), min(br[1], h)
+    heatmap[img_y[0]:img_y[1], img_x[0]:img_x[1]] = np.maximum(
+        heatmap[img_y[0]:img_y[1], img_x[0]:img_x[1]],
+        g[g_y[0]:g_y[1], g_x[0]:g_x[1]])
+    return heatmap
+
+
 def draw_dense_reg(regmap: np.ndarray, heatmap: np.ndarray, center, value,
                    radius: int, is_offset: bool = False):
     """Splat a regression value into a dense HWD map where this object's

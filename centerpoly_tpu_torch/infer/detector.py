@@ -1,10 +1,11 @@
 """Inference detector API.
 
-Behavioral reference: src/lib/detectors/base_detector.py:18-191 and
-detectors/polydet.py:21-101, as the JAX package serves it: `run(image)`
-returns {'results': {class_id: (n, D) arrays}, 'tot'/'load'/'pre'/'net'/
-'dec'/'post'/'merge': seconds}; polydet rows are [x0, y0, x1, y1, score,
-poly..., depth] in source-image coordinates.
+Behavioral reference: src/lib/detectors/base_detector.py:18-191,
+detectors/polydet.py:21-101 and detectors/ctdet.py:24-101, as the JAX
+package serves them: `run(image)` returns {'results': {class_id: (n, D)
+arrays}, 'tot'/'load'/'pre'/'net'/'dec'/'post'/'merge': seconds}; polydet
+rows are [x0, y0, x1, y1, score, poly..., depth], ctdet rows [x0, y0, x1,
+y1, score], in source-image coordinates.
 
 On the device: the axis-aligned affine warp + normalisation of the full
 frame, the model, sigmoid, optional flip average and the top-K decode.
@@ -29,7 +30,7 @@ import torch
 from ..configs import Config
 from ..geometry.affine import get_affine_transform, warp_axis_aligned
 from ..models import create_model
-from ..ops.decode import polydet_decode
+from ..ops.decode import ctdet_decode, polydet_decode
 from ..ops.nms import soft_nms
 from ..utils.timers import StageTimer
 from ..weights import load_reference_checkpoint, load_weights, \
@@ -56,6 +57,26 @@ def polydet_post_process(dets: np.ndarray, c, s, out_h: int, out_w: int,
             top[j + 1] = np.concatenate(
                 [d[inds, :4], d[inds, 4:5], d[inds, 6:]], axis=1
             ).astype(np.float32).tolist()
+        ret.append(top)
+    return ret
+
+
+def ctdet_post_process(dets: np.ndarray, c, s, out_h: int, out_w: int,
+                       num_classes: int) -> List[Dict[int, list]]:
+    """Map decoded ctdet detections (B, K, 6) back to source-image coords,
+    split per class into [x0, y0, x1, y1, score] rows (ref
+    post_process.py:86-104)."""
+    ret = []
+    for i in range(dets.shape[0]):
+        trans = get_affine_transform(c[i], s[i], 0, (out_w, out_h), inv=True)
+        d = dets[i].copy()
+        pts = d[:, :4].reshape(-1, 2)
+        d[:, :4] = (pts @ trans[:, :2].T + trans[:, 2]).reshape(-1, 4)
+        classes = d[:, 5]
+        top: Dict[int, list] = {}
+        for j in range(num_classes):
+            inds = classes == j
+            top[j + 1] = d[inds, :5].astype(np.float32).tolist()
         ret.append(top)
     return ret
 
@@ -440,7 +461,37 @@ class PolydetDetector(BaseDetector):
         return d0
 
 
-DETECTORS = {"polydet": PolydetDetector}
+class CtdetDetector(BaseDetector):
+    """Box detector of the ctdet task (ref detectors/ctdet.py)."""
+
+    def _decode(self, heads):
+        cfg = self.cfg
+        out = {k: v.float().permute(0, 2, 3, 1)
+               for k, v in heads.items()}                       # NHWC views
+        hm = torch.sigmoid(out["hm"])
+        wh = out["wh"]
+        reg = out["reg"] if cfg.reg_offset else None
+        if cfg.flip_test:
+            # average original + x-flipped heat map and wh; the offsets
+            # are not flip-symmetric, keep the unflipped branch
+            nb = hm.shape[0] // 2
+            hm = (hm[:nb] + hm[nb:].flip(2)) / 2
+            wh = (wh[:nb] + wh[nb:].flip(2)) / 2
+            reg = reg[:nb] if reg is not None else None
+        return ctdet_decode(hm, wh, reg=reg, k=cfg.K,
+                            cat_spec_wh=cfg.cat_spec_wh)
+
+    def _post(self, dets_host, meta, scale):
+        d0 = ctdet_post_process(
+            dets_host[:1], [meta["c"]], [meta["s"]],
+            meta["out_height"], meta["out_width"], self.num_classes)[0]
+        for j in range(1, self.num_classes + 1):
+            d0[j] = np.array(d0[j], dtype=np.float32).reshape(-1, 5)
+            d0[j][:, :4] /= scale
+        return d0
+
+
+DETECTORS = {"polydet": PolydetDetector, "ctdet": CtdetDetector}
 
 
 def create_detector(cfg: Config, variables: Mapping | None = None,

@@ -2,14 +2,17 @@
 
     python -m centerpoly_tpu_torch.main polydet --dataset cityscapes \
         --data_dir <root> [--device cpu] ...
+    python -m centerpoly_tpu_torch.main ctdet --dataset coco \
+        --data_dir <root> [--device cpu] ...
 
 (reference surface: src/main.py; the JAX package's main.py).  Trains on
 the card unless `--device cpu` is given.  Frames are read from the
 annotations' file names under the dataset's image directory (`.npy`
 with numpy, PNG with utils/png.py; JPEG needs cv2).  With
-`--val_intervals N` every N-th epoch validates: val loss, then the
-instance AP of the decoded val results (with GT maps for the heads the
-`--eval_oracle_*` flags name), which gates model_best.
+`--val_intervals N` every N-th epoch validates: val loss, then the AP
+of the decoded val results, which gates model_best: polydet's instance
+AP (with GT maps for the heads the `--eval_oracle_*` flags name), or
+ctdet's box AP by the dataset's evaluator (COCO's protocol for coco).
 
 `--batch_size` is the global batch.  On a host with several cards whose
 count divides it, `main` runs one process per card (NCCL on localhost),

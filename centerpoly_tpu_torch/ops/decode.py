@@ -1,9 +1,10 @@
 """On-device detection decode: heatmap -> top-K detections.
 
 Reference decode path: src/lib/models/decode.py (_nms :13-19, _topk
-:117-133, polydet_decode :512-670), vectorized as in the JAX package.
-Maps are NHWC at these functions, the JAX package's layout.  Detection
-rows are [x0, y0, x1, y1, score, class, poly_0..poly_{2N-1}, depth].
+:117-133, polydet_decode :512-670, ctdet_decode :479-510), vectorized as
+in the JAX package.  Maps are NHWC at these functions, the JAX package's
+layout.  Polydet rows are [x0, y0, x1, y1, score, class, poly_0..
+poly_{2N-1}, depth], ctdet rows [x0, y0, x1, y1, score, class].
 """
 from __future__ import annotations
 
@@ -84,3 +85,33 @@ def polydet_decode(heat: torch.Tensor, polys: torch.Tensor,
     poly_out = torch.stack([px, py], -1).reshape(b, k, n2)
     return torch.cat([bboxes, scores[..., None], clses[..., None], poly_out,
                       depth_k], 2)
+
+
+def ctdet_decode(heat: torch.Tensor, wh: torch.Tensor,
+                 reg: torch.Tensor | None = None, k: int = 100,
+                 cat_spec_wh: bool = False) -> torch.Tensor:
+    """CenterNet box decode (ref decode.py:479-510) of NHWC maps: heat
+    (B,H,W,C) after sigmoid, wh (B,H,W,2) or, under cat_spec_wh,
+    (B,H,W,2C) with each class's own pair taken at its peaks; reg
+    (B,H,W,2) or None.  Returns (B, K, 6) rows [x0, y0, x1, y1, score,
+    class]."""
+    heat = pseudo_nms(heat)
+    scores, inds, clses, ys, xs = topk_heatmap(heat, k)
+
+    if reg is not None:
+        reg_k = gather_feat_nhwc(reg, inds)
+        xs = xs[..., None] + reg_k[:, :, 0:1]
+        ys = ys[..., None] + reg_k[:, :, 1:2]
+    else:
+        xs = xs[..., None] + 0.5
+        ys = ys[..., None] + 0.5
+
+    wh_k = gather_feat_nhwc(wh, inds)                       # (B, K, 2[C])
+    if cat_spec_wh:
+        b, kk = scores.shape
+        idx = clses.long()[..., None, None].expand(b, kk, 1, 2)
+        wh_k = torch.gather(wh_k.reshape(b, kk, -1, 2), 2, idx)[:, :, 0]
+
+    bboxes = torch.cat([xs - wh_k[..., 0:1] / 2, ys - wh_k[..., 1:2] / 2,
+                        xs + wh_k[..., 0:1] / 2, ys + wh_k[..., 1:2] / 2], 2)
+    return torch.cat([bboxes, scores[..., None], clses[..., None]], 2)

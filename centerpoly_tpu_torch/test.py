@@ -4,17 +4,22 @@ the JAX package's test.py):
     python -m centerpoly_tpu_torch.test polydet --dataset cityscapes \
         --data_dir <root> [--load_model model_best.pth] [--eval_batch B] \
         [--infer_devices N] [--device cpu]
+    python -m centerpoly_tpu_torch.test ctdet --dataset coco \
+        --data_dir <root> [--load_model model_best.pth] ...
 
 Runs the detector over the val split on the card (`--device cpu` runs the
 port on the CPU), with per-stage time averages for `--eval_batch 1` and a
 prefetch thread feeding `run_batch` for larger batches (over one replica
 on each of the first N cards with `--infer_devices N`, which raises when
 the host has fewer: the JAX CLI takes fewer without a word); then the
-dataset's instance-AP eval: results.json, mask PNGs and txt manifests, and
-instance_ap.json and gtInstances.json under <save_dir>/<dataset>/<task>/
-<exp_id>.  The GT is found by the frames' Cityscapes names
-(<stem>_leftImg8bit.png -> <stem>_gtFine_instanceIds.png), so frames stored
-under other names (`.npy`) cannot be scored.
+dataset's eval under <save_dir>/<dataset>/<task>/<exp_id>.  polydet: the
+instance AP, with results.json, mask PNGs and txt manifests, and
+instance_ap.json and gtInstances.json; the GT is found by the frames'
+Cityscapes names (<stem>_leftImg8bit.png -> <stem>_gtFine_instanceIds.png),
+so frames stored under other names (`.npy`) cannot be scored.  ctdet: the
+box dataset's evaluator against its val annotations (coco_eval.json for
+COCO; voc_eval.json and coco_protocol_eval.json for Pascal, UA-DETRAC and
+UAV; the native KITTI evaluator for kitti2d).
 """
 from __future__ import annotations
 
@@ -123,6 +128,8 @@ def main(argv=None, device=None) -> dict:
         i = argv.index("--device")
         device = argv[i + 1]
         del argv[i:i + 2]
+    from .data.datasets import eval_kwargs
+
     cfg, meta, ann, sampler, detector = setup(argv, device)
 
     t0 = time.perf_counter()
@@ -137,10 +144,13 @@ def main(argv=None, device=None) -> dict:
     save_dir = os.path.join(cfg.save_dir, cfg.dataset, cfg.task, cfg.exp_id)
     os.makedirs(save_dir, exist_ok=True)
     t0 = time.perf_counter()
-    ap = meta.run_eval(results, save_dir, annotations=ann, thresh=cfg.thresh)
+    ap = meta.run_eval(results, save_dir, **eval_kwargs(
+        meta, annotations=ann, thresh=cfg.thresh))
     eval_seconds = time.perf_counter() - t0
-    if ap is not None:
-        print("instance AP:", ap.get("allAp"), "AP50:", ap.get("allAp50%"))
+    if ap is not None and "allAp" in ap:
+        print("instance AP:", ap["allAp"], "AP50:", ap.get("allAp50%"))
+    elif ap is not None:
+        print("AP:", ap.get("AP"), "AP50:", ap.get("AP50"))
     else:
         print("results written to", save_dir,
               "(no GT instance images available for AP)")

@@ -13,7 +13,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from ..losses import PolydetLossConfig, polydet_loss
+from ..losses import ctdet_loss, PolydetLossConfig, polydet_loss
 from ..models.layers import BatchNorm2d
 from . import mesh
 
@@ -22,6 +22,8 @@ def loss_fn_for_task(task: str) -> Callable:
     """task -> loss(outputs, batch, cfg, group=None) -> (loss, stats)."""
     if task == "polydet":
         return polydet_loss
+    if task == "ctdet":
+        return ctdet_loss
     raise NotImplementedError(f"no train loss for task '{task}' in the port "
                               f"yet (ROADMAP.md queue A, secondary surface)")
 

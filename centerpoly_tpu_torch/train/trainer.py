@@ -1,13 +1,15 @@
 """Training orchestration: the epoch loop, validation, checkpoints (the
 JAX package's train/trainer.py; reference src/main.py:24-198 and
 base_trainer.py:64-149): per-epoch train, model_last every epoch,
-periodic val with Cityscapes AP gating model_best (main.py:162-186),
---resume from model_last (+ optimizer), oracle head substitution during
-val (trains/polydet.py:49-70).
+periodic val with AP gating model_best (main.py:162-186), --resume from
+model_last (+ optimizer), oracle head substitution during polydet's val
+(trains/polydet.py:49-70).
 
-Validation decodes each val batch on the host, runs the dataset's
-instance-AP eval and gates model_best on AP; without GT instance images it
-gates on -val_loss, the JAX package's rule (trainer.py:291-292).
+Validation decodes each val batch on the host (polydet's polygons or
+ctdet's boxes), runs the dataset's eval and gates model_best on its AP:
+Cityscapes' `allAp` for polydet, the COCO-protocol `AP` of the box
+datasets; without GT it gates on -val_loss, the JAX package's rule
+(trainer.py:291-292).
 
 Over a process group (train/mesh.py; one rank per card, each with its
 shard of the loaders) the steps are data parallel (train/step.py), and
@@ -26,11 +28,13 @@ import torch
 import torch.distributed as dist
 
 from ..configs import Config
+from ..data.datasets import eval_kwargs
 from ..data.loader import stack_batch
-from ..infer.detector import polydet_post_process, resolve_device
-from ..losses import PolydetLossConfig
+from ..infer.detector import (ctdet_post_process, polydet_post_process,
+                              resolve_device)
+from ..losses import CtdetLossConfig, PolydetLossConfig
 from ..models import create_model
-from ..ops.decode import polydet_decode
+from ..ops.decode import ctdet_decode, polydet_decode
 from ..utils.oracle import apply_oracles
 from ..utils.logger import Logger
 from .checkpoint import load_checkpoint, save_checkpoint
@@ -42,7 +46,7 @@ ORACLE_FLAGS = ("eval_oracle_hm", "eval_oracle_poly", "eval_oracle_offset",
                 "eval_oracle_pseudo_depth")
 
 
-def loss_config_for(cfg: Config) -> PolydetLossConfig:
+def loss_config_for(cfg: Config):
     """The per-task loss config from the experiment config."""
     if cfg.task == "polydet":
         return PolydetLossConfig(
@@ -50,12 +54,19 @@ def loss_config_for(cfg: Config) -> PolydetLossConfig:
             poly_weight=cfg.poly_weight, depth_weight=cfg.depth_weight,
             rep=cfg.rep, poly_loss=cfg.poly_loss, poly_order=cfg.poly_order,
             reg_offset=cfg.reg_offset, mse_loss=cfg.mse_loss)
+    if cfg.task == "ctdet":
+        return CtdetLossConfig(
+            hm_weight=cfg.hm_weight, off_weight=cfg.off_weight,
+            wh_weight=cfg.wh_weight, mse_loss=cfg.mse_loss,
+            reg_loss=cfg.reg_loss, dense_wh=cfg.dense_wh,
+            norm_wh=cfg.norm_wh, cat_spec_wh=cfg.cat_spec_wh,
+            reg_offset=cfg.reg_offset)
     raise NotImplementedError(f"no loss config for task '{cfg.task}' in the "
                               f"port yet")
 
 
 class Trainer:
-    """Polydet training on one device (the card unless `device` says
+    """Polydet or ctdet training on one device (the card unless `device` says
     otherwise), from the seeded init; data parallel over `group`."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None,
@@ -144,8 +155,13 @@ class Trainer:
         {img_id: {class: (n, 5+2N+1) array}} on the host (ref
         trains/polydet.py:220-237), with the GT maps in place of the heads
         the oracle flags name; the GT `hm` is taken as probabilities, a
-        predicted one through the sigmoid."""
-        if "meta" not in batch or self.cfg.task != "polydet":
+        predicted one through the sigmoid.  ctdet's are (n, 5) box rows
+        (`_decode_ctdet`)."""
+        if "meta" not in batch:
+            return None
+        if self.cfg.task == "ctdet":
+            return self._decode_ctdet(outs, batch)
+        if self.cfg.task != "polydet":
             return None
         cfg = self.cfg
         heads = {k: v.detach().float().cpu().numpy() if torch.is_tensor(v)
@@ -174,10 +190,33 @@ class Trainer:
             results[int(m["img_id"])] = pp
         return results
 
+    def _decode_ctdet(self, outs, batch) -> Dict:
+        """A ctdet val batch's head maps -> {img_id: {class: (n, 5)
+        [x0, y0, x1, y1, score] rows}} on the host (ref trains/ctdet.py:
+        137-150)."""
+        cfg = self.cfg
+        heads = {k: _tensor(v.detach().float().cpu().numpy()
+                            if torch.is_tensor(v) else v)
+                 for k, v in outs.items()}
+        dets = ctdet_decode(
+            torch.sigmoid(heads["hm"]), heads["wh"],
+            reg=heads["reg"] if cfg.reg_offset else None, k=cfg.K,
+            cat_spec_wh=cfg.cat_spec_wh).numpy()
+        results = {}
+        for i, m in enumerate(batch["meta"]):
+            pp = ctdet_post_process(
+                dets[i:i + 1], [m["c"]], [m["s"]],
+                cfg.output_h, cfg.output_w, cfg.num_classes)[0]
+            for j in range(1, cfg.num_classes + 1):
+                pp[j] = np.array(pp[j], np.float32).reshape(-1, 5)
+            results[int(m["img_id"])] = pp
+        return results
+
     def validate(self, epoch: int, save_dir: str):
         """Val loss over the val loader and, when the dataset meta can
-        evaluate, the instance AP of the decoded val results.  Returns
-        (val_loss, ap or None)."""
+        evaluate, the AP of the decoded val results: the instance AP's
+        `allAp`, or, where the evaluator gives none, the box evaluators'
+        `AP` (JAX trainer.py:262-266).  Returns (val_loss, ap or None)."""
         if self.val_loader is None:
             return None, None
         sums: Dict[str, float] = {}
@@ -219,16 +258,17 @@ class Trainer:
         if results:
             why = "no GT instance images"
             try:
-                res = self.meta.run_eval(results, save_dir,
-                                         thresh=self.cfg.thresh)
+                res = self.meta.run_eval(results, save_dir, **eval_kwargs(
+                    self.meta, thresh=self.cfg.thresh))
             except OSError as e:        # GT files missing or unreadable
                 res, why = None, str(e)
-            if res is None:
+            ap_val = None if res is None else res.get("allAp", res.get("AP"))
+            if ap_val is None:
                 self._log(f"val {epoch} | AP eval skipped: {why}\n")
             else:
-                ap = float(res["allAp"])
-                self._log(f"val   {epoch} | AP {round(ap, 4)} "
-                          f"AP50 {res['allAp50%']}\n")
+                ap = float(ap_val)
+                ap50 = res.get("allAp50%", res.get("AP50"))
+                self._log(f"val   {epoch} | AP {round(ap, 4)} AP50 {ap50}\n")
                 if self.logger is not None:
                     self.logger.scalar_summary("val_AP", ap, epoch)
         return avg.get("loss"), ap

@@ -15,7 +15,9 @@ through `centerpoly_tpu_torch.main` on a synthetic 2048x1024 fixture
 Hourglass-104 (2 stacks), pure convolution: no DCNv2 node, so no kernel
 of csrc/ runs there; and on resdcn_18 and resdcn_101, whose 3 DCNv2
 nodes a forward run the same kernels (resdcn_101's first at Cin 2048),
-with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Phases
+with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Last,
+the ctdet task (box detection, COCO's 80 classes at 512x512) on DLA-34:
+`create_detector`, `main`, `test.py` and its three evaluators.  Phases
 (any failure exits non-zero, with no result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
@@ -147,7 +149,24 @@ with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Phases
      backward kernels in every step) to AP50 >= 0.5, its AP50 under
      rowband:4 on the same weights and the learned offsets' saturation at
      R = 4, that run's launches counted by stage (16 + 16 a train step, 16
-     a val batch, 16 rowband a re-score batch, 16 for the offsets).
+     a val batch, 16 rowband a re-score batch, 16 for the offsets);
+ 20. the ctdet task (`phase_ctdet`) on COCO's DLA-34 at full width (80
+     classes, head_conv 256, 512x512 input; hm 80, wh 2, reg 2), seeded
+     random weights: (a) both kernels against their plain versions at
+     the distinct DCN node shapes of a 512x512 and a 384x1280 (KITTI)
+     input, the forward in bf16 at batch 1 and f32 at batch 4 in exact /
+     rowband:6 / halo:4, the backward in f32 at batch 4 in exact /
+     rowband:4 / halo:4 (phases 3 and 8's bounds), and the forward's time
+     over a frame's 16 nodes at each input (bf16, batch 1); (b) `create_detector` (bf16,
+     rowband:6) on a seeded COCO-format box fixture's 480x640 val frames:
+     16 launches a frame, `run_batch`, `run_stream` equal to `run`, run
+     p50 and frames/s, f32 heads card vs CPU; (c) `main ctdet` (batch 4,
+     512x512, f32, `off`) with validation: coco_eval.json, one counted
+     step (16 + 16), step p50, test.py's AP equal to main's, and
+     `train_vs_cpu` of a ctdet step; (d) (b)'s detections scored by
+     `PascalMeta.run_eval` (VOC-07 and the COCO-protocol file) and, as
+     KITTI-2D rows, by the native `run_kitti_eval`, built from cpp/ at
+     first use.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -1093,9 +1112,10 @@ def phase_train_vs_cpu(root):
         train_vs_cpu(root, "dla_34", kernel, mode)
 
 
-def train_vs_cpu(root, arch, kernel, mode, nodes=16):
+def train_vs_cpu(root, arch, kernel, mode, nodes=16, task="polydet"):
     """One f32 train step of `arch` on the card (TF32 off) against the
-    port on the CPU at 128x256, batch 2, from the trainer's seeded init;
+    port on the CPU at 128x256 (ctdet: 128x128, 80 classes, on the COCO
+    box fixture under `root`), batch 2, from the trainer's seeded init;
     `mode` is the DCN mode whose backward kernel must run once a DCN node
     (`nodes`: DLA-34 16, resdcn 3) a step on the card, None for a net with
     no DCNv2 node (no launch at all).
@@ -1121,28 +1141,31 @@ def train_vs_cpu(root, arch, kernel, mode, nodes=16):
         1e-3 (DLA-34's floor is far below, so its bound stays 1e-3)."""
     import torch
     from centerpoly_tpu_torch.configs import Config
-    from centerpoly_tpu_torch.data import (CityscapesMeta,
-                                           CocoPolyAnnotations, Loader,
-                                           PolydetSampler)
+    from centerpoly_tpu_torch.data import (DATASETS, SAMPLERS,
+                                           CocoPolyAnnotations, Loader)
     from centerpoly_tpu_torch.kernels import dcn
-    from centerpoly_tpu_torch.losses import polydet_loss
     from centerpoly_tpu_torch.models import create_model
     from centerpoly_tpu_torch.train import state as tstate
-    from centerpoly_tpu_torch.train.step import make_train_step, to_device
+    from centerpoly_tpu_torch.train.step import (loss_fn_for_task,
+                                                 make_train_step, to_device)
     from centerpoly_tpu_torch.train.trainer import loss_config_for
 
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config(arch=arch, input_h=128, input_w=256, rep="polar",
-                 poly_loss="l1+iou", poly_order=True, lr=2e-4,
-                 dcn_kernel=kernel)
-    meta = CityscapesMeta(root)
-    sampler = PolydetSampler(cfg, meta, CocoPolyAnnotations(
+    if task == "ctdet":
+        cfg = Config(task="ctdet", dataset="coco", arch=arch, input_h=128,
+                     input_w=128, lr=2e-4, dcn_kernel=kernel)
+    else:
+        cfg = Config(arch=arch, input_h=128, input_w=256, rep="polar",
+                     poly_loss="l1+iou", poly_order=True, lr=2e-4,
+                     dcn_kernel=kernel)
+    meta = DATASETS[cfg.dataset](root)
+    sampler = SAMPLERS[task](cfg, meta, CocoPolyAnnotations(
         meta.annot_path("train")), img_dir=meta.img_dir("train"))
     host = next(iter(Loader(sampler, len(sampler), 2, shuffle=False)))
-    loss_cfg = loss_config_for(cfg)
+    loss_cfg, task_loss = loss_config_for(cfg), loss_fn_for_task(task)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         sd = create_model(cfg.arch, cfg.heads, cfg.head_conv,
@@ -1164,7 +1187,7 @@ def train_vs_cpu(root, arch, kernel, mode, nodes=16):
         model.train(train).zero_grad(set_to_none=True)
         outs = [{k: v.permute(0, 2, 3, 1) for k, v in o.items()}
                 for o in model(batch["input"])]
-        loss, _ = polydet_loss(outs, batch, loss_cfg)
+        loss, _ = task_loss(outs, batch, loss_cfg)
         loss.backward()
         return loss.item(), {n: p.grad.detach().cpu().double()
                              for n, p in model.named_parameters()
@@ -1175,7 +1198,8 @@ def train_vs_cpu(root, arch, kernel, mode, nodes=16):
     l_cpu, g_cpu = grads(model_on("cpu"), torch.float32, False)
     check(g_card.keys() == g_cpu.keys(), "gradients of other tensors")
     worst = max((rel_max(g_card[n], g_cpu[n]), n) for n in g_cpu)
-    print(f"[train-vs-cpu] {arch} {kernel} BatchNorm on running statistics: "
+    print(f"[train-vs-cpu] {task} {arch} {kernel} BatchNorm on running "
+          f"statistics: "
           f"loss rel {abs(l_card - l_cpu) / abs(l_cpu):.2e}, worst "
           f"gradient rel_max {worst[0]:.2e} ({worst[1]})")
     check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu) and worst[0] < 2e-3,
@@ -1188,7 +1212,8 @@ def train_vs_cpu(root, arch, kernel, mode, nodes=16):
     steps = {}
     for dev in ("cuda", "cpu"):
         st = tstate.create_train_state(model_on(dev), base_lr=cfg.lr)
-        st, stats = make_train_step(loss_cfg)(st, to_device(host, dev))
+        st, stats = make_train_step(loss_cfg, task_loss)(
+            st, to_device(host, dev))
         steps[dev] = (stats["loss"].item(),
                       {n: p.grad.detach().cpu().double()
                        for n, p in st.model.named_parameters()
@@ -1220,7 +1245,8 @@ def train_vs_cpu(root, arch, kernel, mode, nodes=16):
         e_card, e_cpu = rel_max(bc[n], bp[n]), rel_max(bp[n], b64[n])
         bn.append((e_card - max(1e-3, 4 * e_cpu), e_card, e_cpu, n))
     db = max(bn)
-    print(f"[train-vs-cpu] {arch} {kernel} train step: loss card {lc:.6f} cpu "
+    print(f"[train-vs-cpu] {task} {arch} {kernel} train step: loss card "
+          f"{lc:.6f} cpu "
           f"{lp:.6f} f64 {l64:.6f} (rel {abs(lc - lp) / abs(lp):.2e}); "
           f"gradients rel L2 to f64: largest card {worst[1]:.2e} (cpu "
           f"f32 {worst[2]:.2e}, {worst[3]}), closest to its limit card "
@@ -2926,6 +2952,376 @@ def conv_fields(conv, mode):
             "convergence_nodes_f32_max_abs_err": conv["errs"][mode]}
 
 
+# ---- phase 20: the ctdet task ------------------------------------------
+
+# ctdet's network inputs: COCO (and UA-DETRAC) 512x512, KITTI 384x1280
+CTDET_INPUTS = {"coco": (512, 512), "kitti": (384, 1280)}
+CTDET_FRAME_HW = (480, 640)     # a COCO image
+CTDET_SPLITS = {"train": 8, "val": 4}
+# a few of COCO's _valid_ids (person, bicycle, car, dog, bottle) and the
+# Pascal and KITTI classes they remap to for phase 20 (d)
+CTDET_IDS = (1, 2, 3, 18, 44)
+CTDET_TO_PASCAL = {1: 15, 2: 2, 3: 7, 18: 12, 44: 5}
+CTDET_TO_KITTI = {1: 1, 3: 2, 2: 3}         # Pedestrian, Car, Cyclist
+
+
+def dla_node_shapes(h, w):
+    """{(H, W, Cin, Cout): count} of DLA-34's 16 DCN nodes at an (h, w)
+    input: NODE_SHAPES' maps (at 512x1024) scaled to it."""
+    return {(h * nh // 512, w * nw // 1024, cin, cout): n
+            for (nh, nw, cin, cout), n in NODE_SHAPES.items()}
+
+
+def phase_ctdet_kernels():
+    """Phase 20 (a): both kernels at the distinct DCN node shapes of a
+    512x512 (COCO) and a 384x1280 (KITTI) input (12-row and 12-column maps
+    at stride 32, 40- and 320-wide maps, square maps), against the plain
+    versions with phase 3's and phase 8's bounds: the forward in bf16 at
+    batch 1 and f32 at batch 4 in exact / rowband:6 / halo:4, the backward
+    in f32 at batch 4 in exact / rowband:4 / halo:4.  Then the bf16 forward
+    at each input's nodes by CUDA graph replay in each mode, beside the
+    plain version and `node_bound_ms`, summed over a frame's 16 nodes.
+    Returns {"fwd_err" | "bwd_err": {mode: max |err|}, "times": {input:
+    {"frame": {mode: {"ms", "plain_ms"}}, "bound_ms", "bound_by"}},
+    "shapes": {input: node shapes}}."""
+    import torch
+    from centerpoly_tpu_torch.kernels import dcn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tols = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+    nodes = {k: dla_node_shapes(*hw) for k, hw in CTDET_INPUTS.items()}
+    shapes = sorted(set(nodes["coco"]) | set(nodes["kitti"]))
+    fwd_err = dict.fromkeys(FWD_CLAMPS, 0.0)
+    bwd_err = dict.fromkeys(BWD_CLAMPS, 0.0)
+    for i, shape in enumerate(shapes):
+        for batch, dtype in ((1, torch.bfloat16), (TRAIN_BATCH, torch.float32)):
+            args = node_inputs(shape, dtype, SEED + 200 + i, batch)
+            for mode, kw in FWD_CLAMPS.items():
+                got = dcn.deform_conv2d(*args, **kw)
+                ref = dcn.deform_conv2d_ref(*args, **kw)
+                torch.cuda.synchronize()
+                diff = (got.float() - ref.float()).abs().max().item()
+                rel = diff / ref.float().abs().max().item()
+                print(f"[ctdet-kernel] b{batch} {shape} {mode:7s} "
+                      f"{str(dtype)[6:]:8s} splits "
+                      f"{fwd_splits(shape, batch, dtype):2d} max_abs "
+                      f"{diff:.3e} rel_max {rel:.3e} (tol {tols[dtype]:g})")
+                check(np.isfinite(rel) and rel < tols[dtype],
+                      f"kernel disagrees at b{batch} {shape} {mode} {dtype}")
+                if dtype == torch.bfloat16:
+                    fwd_err[mode] = max(fwd_err[mode], diff)
+            del args
+        args, g = bwd_inputs(shape, torch.float32, SEED + 200 + i, TRAIN_BATCH)
+        plan = dcn.bwd_plan(TRAIN_BATCH * shape[0] * shape[1], *shape[2:],
+                            n_sm)
+        for mode, kw in BWD_CLAMPS.items():
+            worst, _ = check_bwd(
+                f"ctdet b{TRAIN_BATCH} {shape} {mode:7s} float32 splits "
+                f"{plan.splits}/{plan.data_splits}", args, g, kw, 1e-4, 1e-3)
+            bwd_err[mode] = max(bwd_err[mode], worst)
+        del args, g
+    frames = {}
+    for key, hw in CTDET_INPUTS.items():
+        frame = {m: {"ms": 0.0, "plain_ms": 0.0} for m in FWD_CLAMPS}
+        bound_frame, ops_share = 0.0, 0.0
+        for i, (shape, n) in enumerate(nodes[key].items()):
+            args = node_inputs(shape, torch.bfloat16, SEED + i)
+            bound, by = node_bound_ms(shape)
+            bound_frame += n * bound
+            ops_share += n * bound * (by == "operations")
+            for mode, t in mode_times(*fwd_fns(args), FWD_CLAMPS, 20,
+                                      5).items():
+                frame[mode]["ms"] += n * t["ms"]
+                frame[mode]["plain_ms"] += n * t["plain_ms"]
+                print(f"[ctdet-time] {shape} x{n} {mode:7s} kernel "
+                      f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  "
+                      f"bound {bound:.4f} ms ({by}, "
+                      f"{100 * bound / t['ms']:.1f} % of it)  splits "
+                      f"{fwd_splits(shape, 1, torch.bfloat16)}")
+            del args
+        for mode, v in frame.items():
+            print(f"[ctdet-time] {mode} per {hw[0]}x{hw[1]} frame (16 "
+                  f"nodes, bf16): kernel {v['ms']:.3f} ms  plain "
+                  f"{v['plain_ms']:.3f} ms  bound {bound_frame:.4f} ms "
+                  f"({100 * bound_frame / v['ms']:.1f} % of it)")
+        frames[key] = {"frame": frame, "bound_ms": bound_frame,
+                       "bound_by": ("operations" if ops_share
+                                    >= bound_frame / 2 else "bytes")}
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": frames,
+            "shapes": {k: [list(s) for s in v] for k, v in nodes.items()}}
+
+
+def ctdet_frames(root):
+    """The ctdet fixture's val frames (480x640 uint8) and image ids."""
+    from centerpoly_tpu_torch.data import CocoMeta, CocoPolyAnnotations
+    meta = CocoMeta(root)
+    ann = CocoPolyAnnotations(meta.annot_path("val"))
+    ids = ann.get_img_ids()
+    return ids, [np.load(os.path.join(meta.img_dir("val"),
+                                      ann.load_img(i)["file_name"]))
+                 for i in ids]
+
+
+def phase_ctdet_infer(root):
+    """Phase 20 (b): `create_detector(serving_config(task="ctdet",
+    dataset="coco"))` at full width (80 classes, head_conv 256, 512x512
+    input, heads hm 80 / wh 2 / reg 2, K 128, bf16, rowband:6), seeded
+    random weights, on the fixture's 480x640 val frames: `run` and
+    `run_batch` of 4 with the launch counts zeroed just before and read
+    just after (16 `dcn_fwd[rowband]` a forward, at the 512x512 node
+    shapes), `run_stream` equal to `run` frame by frame (cuDNN
+    deterministic for both), run p50 and run_batch frames/s
+    (`e2e_times`); f32 heads on the card (TF32 off) within 2e-3 of the
+    port on the CPU.  Returns ({img_id: run's results}, launches a
+    frame)."""
+    import torch
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.models.deform_conv import DCNv2
+
+    cfg = serving_config(task="ctdet", dataset="coco")
+    check((cfg.input_h, cfg.input_w, cfg.head_conv, cfg.num_classes)
+          == (*CTDET_INPUTS["coco"], 256, 80)
+          and cfg.heads == {"hm": 80, "wh": 2, "reg": 2}, "ctdet config")
+    sd = random_state_dict(create_model(cfg.arch, cfg.heads, cfg.head_conv),
+                           SEED + 20)
+    ids, frames = ctdet_frames(root)
+    det = create_detector(cfg, sd)
+    check(det.device.type == "cuda" and det.dtype == torch.bfloat16,
+          f"detector on {det.device} in {det.dtype}")
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append(
+            (*inp[0].shape[2:], inp[0].shape[1], out.shape[1])))
+        for m in det.model.modules() if isinstance(m, DCNv2)]
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for i, frame in zip(ids, frames):
+        ret, n = run_counted(lambda: det.run(frame), "rowband")
+        runs[i] = ret["results"]
+        rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
+        check(rows.shape == (cfg.K, 5) and np.isfinite(rows).all(),
+              f"ctdet frame {i} results {rows.shape}")
+    for h in hooks:
+        h.remove()
+    want = dla_node_shapes(*CTDET_INPUTS["coco"])
+    check(collections.Counter(shapes[:16]) == collections.Counter(want),
+          f"ctdet DCN node shapes {collections.Counter(shapes[:16])}")
+    batch, nb = run_counted(lambda: det.run_batch(frames), "rowband")
+    check(len(batch) == len(frames), "run_batch returned the wrong count")
+    zero_counts()
+    streamed = list(det.run_stream(iter(frames), depth=2))
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    torch.backends.cudnn.deterministic = flags
+    check(counts == {"rowband": 16 * len(frames)},
+          f"run_stream launches {counts}")
+    for i, got in zip(ids, streamed):
+        check(same_results(got, runs[i]), f"run_stream frame {i} differs "
+              f"from run()")
+    print(f"[ctdet] bf16 rowband:6 on {len(frames)} {CTDET_FRAME_HW[1]}x"
+          f"{CTDET_FRAME_HW[0]} frames: run {n} dcn_fwd launches a frame at "
+          f"the 512x512 node shapes, run_batch of {len(frames)} {nb}, "
+          f"run_stream equal to run frame by frame; {cfg.K} finite rows")
+    e2e_times(det, "ctdet rowband:6", frames)
+    del det
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = serving_config(task="ctdet", dataset="coco",
+                           mixed_precision=False)
+    det32 = create_detector(cfg32, sd)
+    det_cpu = create_detector(cfg32, sd, device="cpu")
+    trans, meta = det_cpu._scaled_trans(*CTDET_FRAME_HW, 1.0)
+    with torch.no_grad():
+        x = det_cpu._pre_device(torch.from_numpy(frames[0])[None], trans,
+                                (meta["inp_h"], meta["inp_w"]))
+        ref = det_cpu._heads(x)
+        got = det32._heads(x.to("cuda", memory_format=torch.channels_last))
+    check_heads("ctdet 512x512", ref, got)
+    return runs, n
+
+
+def ctdet_train_argv(root, *extra):
+    return ["ctdet", "--dataset", "coco", "--data_dir", root, "--save_dir",
+            os.path.join(root, "exp"), "--exp_id", "ctdet", *extra]
+
+
+def phase_ctdet_train(root):
+    """Phase 20 (c): `main ctdet` on the COCO box fixture for one epoch
+    (batch 4, 512x512, f32, `off`: 16 exact forward + 16 backward launches
+    a step) with `--val_intervals 1`: the loss finite and falling on a
+    fixed batch, coco_eval.json with every key, model_best; one more step
+    with the launch counts zeroed just before and read just after; step
+    p50, images/s and peak memory; test.py on model_best in the same
+    arithmetic (f32, `off`): its AP and AP50 those of main's validation;
+    `train_vs_cpu` of a ctdet step in `off`.  Returns the counts of one
+    step by kernel."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch import test as ttest
+    from centerpoly_tpu_torch.kernels import dcn
+
+    zero_counts()
+    tr = tmain.main(ctdet_train_argv(
+        root, "--batch_size", str(TRAIN_BATCH), "--num_workers", "0",
+        "--num_epochs", "1", "--val_intervals", "1", "--dcn_kernel", "off"),
+        device="cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    steps, n_val = tr.state.step, len(tr.val_loader)
+    print(f"[ctdet-train] main ctdet --dcn_kernel off: {steps} steps of batch "
+          f"{TRAIN_BATCH} at {tr.cfg.input_h}x{tr.cfg.input_w} + {n_val} val "
+          f"batches; launches {counts}")
+    check((tr.cfg.input_h, tr.cfg.input_w) == CTDET_INPUTS["coco"]
+          and steps == 2 and n_val == 1
+          and counts == {"exact": 16 * (steps + n_val),
+                         "bwd_exact": 16 * steps},
+          "expected 16 forward + 16 backward launches a step")
+    save_dir = os.path.join(root, "exp", "coco", "ctdet", "ctdet")
+    with open(os.path.join(save_dir, "coco_eval.json")) as f:
+        main_ap = json.load(f)
+    check(set(main_ap) == {"AP", "AP50", "AP75", "AR100", "APs", "APm",
+                           "APl"} and all(np.isfinite(list(main_ap.values()))),
+          f"coco_eval.json {main_ap}")
+    check(os.path.isfile(os.path.join(save_dir, "model_best.pth")),
+          "no model_best.pth after main ctdet")
+    print(f"[ctdet-train] main's validation: coco_eval.json {main_ap}")
+    loss_falls(tr, "ctdet off")
+    step = step_launches(tr, 16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    step_times(tr, "ctdet off")
+    del tr
+    torch.cuda.empty_cache()
+
+    out = ttest.main(ctdet_train_argv(
+        root, "--load_model", os.path.join(save_dir, "model_best.pth"),
+        "--dcn_kernel", "off", "--no_mixed_precision"), device="cuda")
+    check(out["frames"] == CTDET_SPLITS["val"] and out["ap"] is not None
+          and (out["ap"]["AP"], out["ap"]["AP50"])
+          == (main_ap["AP"], main_ap["AP50"]),
+          f"test.py AP {out['ap']} differs from main's {main_ap}")
+    print(f"[ctdet-train] test.py on model_best (f32, off): AP "
+          f"{out['ap']['AP']} AP50 {out['ap']['AP50']}, main's validation's")
+    train_vs_cpu(root, "dla_34", "off", "exact", task="ctdet")
+    return step
+
+
+def phase_ctdet_evaluators(root, runs):
+    """Phase 20 (d): (b)'s detections on the fixture's val frames, their
+    COCO classes remapped to Pascal's (CTDET_TO_PASCAL), scored by
+    `PascalMeta.run_eval` against the fixture's boxes in the Pascal layout
+    (VOC-07 and the COCO-protocol file); remapped to KITTI's classes
+    (CTDET_TO_KITTI), written as KITTI-2D rows by `Kitti2dMeta` and scored
+    by `run_kitti_eval` against KITTI label files of the same boxes; then
+    the fixture's own boxes through both, which must score VOC-07 mAP 1 and
+    a KITTI AP above 0.  The native evaluator builds at first use into
+    centerpoly_tpu_torch/_build/native; it must build."""
+    from centerpoly_tpu_torch.data import (CocoMeta, CocoPolyAnnotations,
+                                           Kitti2dMeta, PascalMeta)
+    from centerpoly_tpu_torch.eval import native
+
+    coco = CocoMeta(root)
+    ann = CocoPolyAnnotations(coco.annot_path("val"))
+    pascal = PascalMeta(root)
+    voc = dict(ann.dataset, annotations=[
+        dict(a, category_id=CTDET_TO_PASCAL[a["category_id"]])
+        for a in ann.dataset["annotations"]])
+    os.makedirs(os.path.dirname(pascal.annot_path("val")), exist_ok=True)
+    with open(pascal.annot_path("val"), "w") as f:
+        json.dump(voc, f)
+
+    def remap(table, results):
+        out = {}
+        for img_id, per_class in results.items():
+            out[img_id] = {}
+            for j, rows in per_class.items():
+                c = table.get(coco._valid_ids[j - 1])
+                if c is not None and len(rows):
+                    out[img_id][c] = np.concatenate(
+                        [out[img_id].get(c, np.zeros((0, 5), np.float32)),
+                         np.asarray(rows, np.float32)])
+        return out
+
+    # the fixture's own boxes as detections (score 0.9): the evaluators
+    # must see the GT (VOC-07 mAP 1, KITTI AP > 0), so a 0 from the card's
+    # random weights is theirs, not the evaluators'
+    gt_rows = {}
+    for img_id in ann.get_img_ids():
+        gt_rows[img_id] = {}
+        for a in ann.load_anns(img_id):
+            x, y, w, h = a["bbox"]
+            j = coco.cat_ids[a["category_id"]] + 1
+            gt_rows[img_id][j] = np.concatenate([gt_rows[img_id].get(
+                j, np.zeros((0, 5), np.float32)), np.array(
+                    [[x, y, x + w, y + h, 0.9]], np.float32)])
+
+    kitti = Kitti2dMeta(root)
+    gt_dir = os.path.join(root, "kitti_label_2")
+    os.makedirs(gt_dir, exist_ok=True)
+    for img_id in ann.get_img_ids():
+        with open(os.path.join(gt_dir, f"{img_id:06d}.txt"), "w") as f:
+            for a in ann.load_anns(img_id):
+                c = CTDET_TO_KITTI.get(a["category_id"])
+                if c is None:
+                    continue
+                x, y, w, h = a["bbox"]
+                f.write(f"{kitti.class_name[c]} 0.00 0 -10 {x:.2f} {y:.2f} "
+                        f"{x + w:.2f} {y + h:.2f} -1 -1 -1 -1000 -1000 -1000 "
+                        f"-10\n")
+    t0 = time.perf_counter()
+    built = native.ensure_built()
+    check(built, f"the native evaluator did not build: "
+          f"{native.last_build_error}")
+    print(f"[ctdet-eval] cpp/ built into {os.path.relpath(native.BUILD_DIR)} "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    for label, results in (("the card's detections", runs),
+                           ("the fixture's boxes", gt_rows)):
+        tag = "card" if results is runs else "gt"
+        voc_dir = os.path.join(root, "exp", f"pascal_{tag}")
+        res = pascal.run_eval(remap(CTDET_TO_PASCAL, results), voc_dir)
+        check(res["protocol"] == "voc07_11point" and np.isfinite(res["AP"])
+              and os.path.isfile(os.path.join(voc_dir, "voc_eval.json"))
+              and os.path.isfile(os.path.join(voc_dir,
+                                              "coco_protocol_eval.json")),
+              f"PascalMeta.run_eval {res}")
+        kres = kitti.run_eval(remap(CTDET_TO_KITTI, results), os.path.join(
+            root, "exp", f"kitti2d_{tag}"), gt_label_dir=gt_dir)
+        check(kres is not None and all(
+            np.isfinite(v).all() for per in kres.values()
+            for v in per.values()), f"run_kitti_eval {kres}")
+        if results is gt_rows:
+            check(abs(res["AP"] - 1.0) < 1e-9 and kres and all(
+                per["detection"][0] > 0 for per in kres.values()),
+                f"the GT as detections: VOC {res['AP']}, KITTI {kres}")
+        print(f"[ctdet-eval] {label}: PascalMeta.run_eval VOC-07 mAP "
+              f"{res['AP']} (" + " ".join(
+                  f"{k[3:]} {v:.4f}" for k, v in res.items()
+                  if k.startswith("AP_")) + "), coco_protocol_eval.json "
+              f"written; as Kitti2dMeta rows, run_kitti_eval 2D AP " + "; ".join(
+                  f"{cls} {per['detection']}" for cls, per in kres.items()
+                  if "detection" in per))
+
+
+def phase_ctdet(root):
+    """Phase 20: the ctdet task (see the module doc).  Returns the fields
+    of the kernels line."""
+    from centerpoly_tpu_torch.data.fixture import write_box_fixture
+    t0 = time.perf_counter()
+    kern = phase_ctdet_kernels()
+    root = write_box_fixture(os.path.join(root, "ctdet"), CTDET_SPLITS,
+                             SEED, *CTDET_FRAME_HW,
+                             categories=CTDET_IDS)
+    runs, run_launches = phase_ctdet_infer(root)
+    step = phase_ctdet_train(root)
+    phase_ctdet_evaluators(root, runs)
+    print(f"[ctdet] phase 20 in {time.perf_counter() - t0:.1f} s")
+    return dict(kern, run=run_launches, step=step)
+
+
 def main() -> int:
     import argparse
     import tempfile
@@ -2978,6 +3374,7 @@ def main() -> int:
         weights = phase_demo(sd, root, card)
         csv_launches = phase_run_on_csv(sd, weights, root, card)
         conv = phase_convergence(root, card)
+        ctdet = phase_ctdet(root)
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],
@@ -3007,6 +3404,20 @@ def main() -> int:
     kernels[0].update(conv_fields(conv, "exact"))
     kernels[1]["convergence_rescore_launches"] = conv["rescore"]
     kernels[1]["convergence_nodes_f32_max_abs_err"] = conv["errs"]["rowband"]
+    # phase 20: ctdet's launches a frame (rowband:6) and a train step
+    # (exact), its node shapes, its kernels' largest errors there and the
+    # forward's time over a 512x512 frame's 16 nodes (bf16, batch 1)
+    kernels[1]["ctdet_run_launches"] = ctdet["run"]
+    kernels[0]["ctdet_train_step_launches"] = ctdet["step"]["exact"]
+    for k, mode in zip(kernels, FWD_CLAMPS):
+        k.update({"ctdet_node_shapes": ctdet["shapes"],
+                  "ctdet_nodes_max_abs_err": ctdet["fwd_err"][mode]})
+        for key, t in ctdet["times"].items():
+            pre = "ctdet_{}x{}_frame_".format(*CTDET_INPUTS[key])
+            k.update({pre + "ms": t["frame"][mode]["ms"],
+                      pre + "plain_ms": t["frame"][mode]["plain_ms"],
+                      pre + "bound_ms": t["bound_ms"],
+                      pre + "bound_by": t["bound_by"]})
     for k, mode in zip(kernels, FWD_CLAMPS):
         node, node32 = resdcn_node["fwd"][mode], resdcn_node["fwd_f32"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})
@@ -3028,6 +3439,10 @@ def main() -> int:
     kernels[3]["resdcn18_train_step_launches"] = resdcn18["step"]["bwd_exact"]
     kernels[3]["resdcn101_train_step_launches"] = resdcn101["bwd_exact"]
     kernels[3].update(conv_fields(conv, "bwd_exact"))
+    kernels[3]["ctdet_train_step_launches"] = ctdet["step"]["bwd_exact"]
+    for k, mode in zip(kernels[3:], BWD_CLAMPS):
+        k.update({"ctdet_node_shapes": ctdet["shapes"],
+                  "ctdet_nodes_max_abs_err": ctdet["bwd_err"][mode]})
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         node = resdcn_node["bwd"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})

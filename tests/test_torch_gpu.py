@@ -478,6 +478,64 @@ def test_kernels_at_the_resdcn101_node(cuda, batch, dtype, tol, tol_off,
     assert max(v for k, v in rel.items() if k != "doffsets") < tol, rel
 
 
+@pytest.mark.parametrize("dtype,tol,tol_off", [(torch.float32, 1e-4, 1e-3),
+                                               (torch.bfloat16, 3e-2, 3e-2)])
+@pytest.mark.parametrize("mode", sorted(CLAMPS))
+def test_kernels_at_a_kitti_node(cuda, dtype, tol, tol_off, mode):
+    """Both kernels at DLA-34's stride-32 node of a 384x1280 KITTI input,
+    (12, 40, 512, 256), batch 2: a 12-row map, whose 960 pixels leave the
+    last 64-pixel tile ragged, against the plain versions with this file's
+    tolerances (the forward's bf16 one is 2e-2)."""
+    args = _inputs(cuda, dtype, 2, 12, 40, 512, 256)
+    kw = CLAMPS[mode]
+    got = dcn.deform_conv2d(*args, **kw)
+    ref = dcn.deform_conv2d_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < TOLS[dtype]
+    g = torch.randn(2, 12, 40, 256, generator=torch.Generator()
+                    .manual_seed(1)).to(cuda, dtype)
+    rel = _bwd_rel(dcn.deform_conv2d_backward(*args, g, **kw),
+                   dcn.deform_conv2d_backward_ref(*args, g, **kw))
+    assert rel["doffsets"] < tol_off, rel
+    assert max(v for k, v in rel.items() if k != "doffsets") < tol, rel
+
+
+def test_ctdet_run_on_card_matches_cpu(cuda):
+    """chip_smoke.py phase 20 in small: the ctdet detector (80 classes,
+    DLA-34, head_conv 64, 128x128 input, f32, TF32 off, rowband:6) on a
+    160x120 frame: 16 `dcn_fwd` launches a frame, every head on the card
+    within 2e-3 relative max of the CPU's, K finite box rows."""
+    cfg = Config(task="ctdet", dataset="coco", input_h=128, input_w=128,
+                 head_conv=64, K=32, mixed_precision=False)
+    assert cfg.prefer_fast_inference_dcn()
+    det_cpu = create_detector(cfg, device="cpu")
+    sd = det_cpu.model.state_dict()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, v in sd.items():
+            if "conv_offset_mask" in name:
+                v.normal_(0, 0.3, generator=gen)
+    det = create_detector(cfg, sd)
+    det_cpu = create_detector(cfg, sd, device="cpu")
+    frame = np.random.RandomState(0).randint(0, 256, (120, 160, 3),
+                                             dtype=np.uint8)
+    before = dict(dcn.launches)
+    ret = det.run(frame)
+    torch.cuda.synchronize()
+    assert dcn.launches["rowband"] == before["rowband"] + 16
+    rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
+    assert rows.shape == (32, 5) and np.isfinite(rows).all()
+    trans, meta = det_cpu._scaled_trans(120, 160, 1.0)
+    with torch.no_grad():
+        x = det_cpu._pre_device(torch.from_numpy(frame)[None], trans,
+                                (meta["inp_h"], meta["inp_w"]))
+        ref = det_cpu._heads(x)
+        got = det._heads(x.to(cuda, memory_format=torch.channels_last))
+    assert set(got) == {"hm", "wh", "reg"}
+    for k in ref:
+        assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
+
+
 @pytest.mark.parametrize("eval_batch", [1, 2])
 def test_eval_cli_on_card(cuda, tmp_path, monkeypatch, eval_batch):
     """`python -m centerpoly_tpu_torch.test` on the card (bf16, the

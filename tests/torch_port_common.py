@@ -130,7 +130,7 @@ def port_model(variables, heads, head_conv: int, dcn_kernel: str = "auto",
     return model.eval()
 
 
-def self_sensitivity(net, batch, loss_cfg):
+def self_sensitivity(net, batch, loss_cfg, loss_fn=None):
     """How far the port's own loss parts and gradients move when every
     weight moves by a relative 1e-6 (seeded): the conditioning of the
     random network, the floor under any comparison of two
@@ -140,13 +140,14 @@ def self_sensitivity(net, batch, loss_cfg):
     {parameter: relative L2 change of its gradient}, {BatchNorm
     statistic: max |change|}); parameters whose exact gradient is 0 (DCN
     biases feeding train-mode BatchNorm) or that no path reads are left
-    out."""
+    out.  `loss_fn`: the task's loss, polydet_loss by default."""
     import torch
 
     from centerpoly_tpu_torch.losses import polydet_loss
 
     from centerpoly_tpu_torch.models.deform_conv import DCNv2
 
+    loss_fn = loss_fn or polydet_loss
     batches = batch if isinstance(batch, list) else [batch]
     sd = {k: v.clone() for k, v in net.state_dict().items()}
     # every DCNv2 node of DLA-34 and resdcn feeds a train-mode BatchNorm,
@@ -165,7 +166,7 @@ def self_sensitivity(net, batch, loss_cfg):
         for b in batches:
             out = [{k: v.permute(0, 2, 3, 1) for k, v in o.items()}
                    for o in net(b["input"])]
-            loss, parts = polydet_loss(out, b, loss_cfg)
+            loss, parts = loss_fn(out, b, loss_cfg)
             (loss / len(batches)).backward()
             for k, v in parts.items():
                 stats[k] = stats.get(k, 0.0) + float(v) / len(batches)
@@ -193,17 +194,17 @@ def f64(tree):
 
 
 def jax_step_f64(arch, heads, head_conv: int, hw, lr: float, loss_kw,
-                 variables, batch):
+                 variables, batch, task: str = "polydet"):
     """One step of the JAX package's train step in f64 (the model of
     `arch` built with dtype float64 under jax.enable_x64) from `variables`
     on the host `batch`: (its stats, its gradients, and its parameters
     and BatchNorm statistics after the step), the last two as port
-    state_dicts.  The DCN mode is CENTERPOLY_PALLAS_DCN's as the step is
-    traced."""
-    from centerpoly_tpu.losses import PolydetLossConfig
+    state_dicts; `task`'s loss (polydet or ctdet) with `loss_kw`.  The
+    DCN mode is CENTERPOLY_PALLAS_DCN's as the step is traced."""
+    from centerpoly_tpu.losses import CtdetLossConfig, PolydetLossConfig
     from centerpoly_tpu.models import create_model
     from centerpoly_tpu.train import state as jstate
-    from centerpoly_tpu.train.step import make_train_step
+    from centerpoly_tpu.train.step import loss_fn_for_task, make_train_step
     from centerpoly_tpu_torch.weights import state_dict_from_jax
 
     variables, batch = f64(variables), f64(batch)
@@ -216,7 +217,10 @@ def jax_step_f64(arch, heads, head_conv: int, hw, lr: float, loss_kw,
         st = st.replace(params=params, opt_state=st.tx.init(params),
                         batch_stats=jax.tree.map(jnp.asarray,
                                                  variables["batch_stats"]))
-        st, stats = make_train_step(PolydetLossConfig(**loss_kw))(
+        loss_cfg = (CtdetLossConfig if task == "ctdet"
+                    else PolydetLossConfig)(**loss_kw)
+        st, stats = make_train_step(
+            loss_cfg, loss_callable=loss_fn_for_task(task))(
             st, jax.tree.map(jnp.asarray, batch))
         assert jax.tree.leaves(st.params)[0].dtype == jnp.float64
         # Adam's first moment after one step is (1 - b1) g
