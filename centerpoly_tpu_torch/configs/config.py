@@ -2,7 +2,8 @@
 
 The port's own copy of the JAX package's `Config` (itself the reference's
 argparse `opts`, src/lib/opts.py:9-459), cut to the fields the inference,
-polydet and ctdet training, eval and data-parallel slices read.  The DCN mode
+polydet, ctdet, exdet and multi_pose training, eval and data-parallel
+slices read.  The DCN mode
 travels to the model as the `dcn_kernel` argument; nothing here writes
 environment variables.
 """
@@ -153,6 +154,16 @@ class Config:
     poly_weight: float = 1.0
     depth_weight: float = 0.1
     wh_weight: float = 0.1
+    # multi_pose loss weights and flags
+    hp_weight: float = 1.0
+    hm_hp_weight: float = 1.0
+    dense_hp: bool = False         # joint offsets regressed densely under
+                                   # the centre gaussian
+    hm_hp: bool = True             # joint heat maps (head hm_hp)
+    reg_hp_offset: bool = True     # joint sub-pixel offsets (hp_offset)
+    # exdet
+    agnostic_ex: bool = False      # one extreme-point heat map, not one a
+                                   # class
 
     # augmentation
     not_rand_crop: bool = False
@@ -161,6 +172,8 @@ class Config:
     flip: float = 0.5
     no_reorder_flip: bool = False
     no_color_aug: bool = False
+    aug_rot: float = 0.0           # multi_pose: probability of a rotation
+    rotate: float = 0.0            # multi_pose: its scale in degrees
 
     # debug views of the detector (ref opts.py:19-24): 0 = off, 1-3 =
     # compose the heat-map blend and the detection overlay, 4 = also save
@@ -222,7 +235,10 @@ class Config:
         self.max_objs = 128
         self.heads = task_heads(self.task, self.num_classes, self.nbr_points,
                                 self.reg_offset, self.cat_spec_poly,
-                                self.cat_spec_wh)
+                                self.cat_spec_wh,
+                                agnostic_ex=self.agnostic_ex,
+                                hm_hp=self.hm_hp,
+                                reg_hp_offset=self.reg_hp_offset)
 
     def prefer_fast_inference_dcn(self) -> bool:
         """Default the inference entry points onto `rowband:6` when the user

@@ -2,10 +2,13 @@
 random crop via centre/scale jitter, horizontal flip, the affine input
 warp, PCA colour aug and normalisation.  Host-side numpy; NHWC outputs.
 
-The input warp is the port's own: training's affine has no rotation
-(rot=0), so it is axis-aligned and separable, and `warp_axis_aligned_np`
-computes it as two two-tap gathers (rows, then columns) with the
-arithmetic of geometry/affine.py::_sampling_matrix; no cv2.
+The input warp is the port's own, with no cv2: an affine with no rotation
+(rot=0, every task but multi_pose under aug_rot) is axis-aligned and
+separable, and `warp_axis_aligned_np` computes it as two two-tap gathers
+(rows, then columns) with the arithmetic of
+geometry/affine.py::_sampling_matrix; a rotated one goes through
+geometry/affine.py::warp_affine_np, the JAX package's general bilinear
+warp in numpy.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from ..geometry.affine import get_affine_transform
+from ..geometry.affine import get_affine_transform, warp_affine_np
 from ..utils.png import read_image
 from .coco_poly import CocoPolyAnnotations
 
@@ -160,13 +163,15 @@ class BaseSampler:
                 c[0] = width - c[0] - 1
         return img, c, s, flipped
 
-    def _warp_input(self, img: np.ndarray, c, s) -> np.ndarray:
-        """Axis-aligned warp to (input_h, input_w) + colour aug +
-        normalise."""
+    def _warp_input(self, img: np.ndarray, c, s, rot: float = 0.0
+                    ) -> np.ndarray:
+        """Warp to (input_h, input_w), rotated by `rot` degrees, + colour
+        aug + normalise."""
         cfg = self.cfg
         input_h, input_w = cfg.input_h, cfg.input_w
-        trans_input = get_affine_transform(c, s, 0, (input_w, input_h))
-        inp = warp_axis_aligned_np(img, trans_input, (input_h, input_w))
+        trans_input = get_affine_transform(c, s, rot, (input_w, input_h))
+        warp = warp_axis_aligned_np if rot == 0 else warp_affine_np
+        inp = warp(img, trans_input, (input_h, input_w))
         inp = inp / np.float32(255.0)
         if self.split == "train" and not cfg.no_color_aug:
             inp = color_aug(self.rng, inp)

@@ -3,9 +3,9 @@ JAX package's data/datasets.py).  The polygon adapters (reference
 src/lib/datasets/dataset/{cityscapes,kitti_poly,IDD}.py): class names,
 label ids, per-class frequencies, annotation paths by nbr_points and split,
 and `run_eval`, wired to the instance-AP harness (eval/).  The box
-adapters of the ctdet task (dataset/{coco,pascal,kitti,kitti2d,uadetrac*,
-uav}.py): `run_eval(results, save_dir)` scores {img_id: {class: (n, 5)
-rows}} with the COCO protocol (eval/coco_eval.py), VOC-07 (eval/
+adapters of the ctdet, exdet and multi_pose tasks (dataset/{coco,coco_hp,
+pascal,kitti,kitti2d,uadetrac*,uav}.py): `run_eval(results, save_dir)`
+scores {img_id: {class: (n, 5+) rows}} by their first five columns with the COCO protocol (eval/coco_eval.py), VOC-07 (eval/
 voc_eval.py) or the native KITTI evaluator (eval/native.py).  The box
 adapters' `run_eval` takes neither `annotations` nor `thresh`, as in the
 JAX package; the callers pass those to an adapter whose `run_eval` names
@@ -203,20 +203,42 @@ class CocoMeta(DatasetMeta):
         return d if os.path.isdir(d) else None
 
     def run_eval(self, results, save_dir: str):
-        """COCO bbox mAP over {img_id: {cls: rows}} ctdet results."""
+        """COCO bbox mAP over {img_id: {cls: rows}} results, each row's
+        first five columns [x0, y0, x1, y1, score]: ctdet's and exdet's
+        rows, and multi_pose's 39-column ones (the JAX package reshapes
+        those to (-1, 5), which mixes joints into boxes or raises)."""
         from ..eval.coco_eval import evaluate_coco_map_areas
 
         ann = CocoPolyAnnotations(self.annot_path("val"))
         remapped = {}
         for img_id, per_class in results.items():
             remapped[int(img_id)] = {
-                self._valid_ids[cls - 1]: np.asarray(rows, np.float32)
+                self._valid_ids[cls - 1]: np.asarray(
+                    rows, np.float32).reshape(len(rows), -1)[:, :5]
                 for cls, rows in per_class.items() if len(rows)}
         res = evaluate_coco_map_areas(ann, remapped)
         os.makedirs(save_dir, exist_ok=True)
         with open(os.path.join(save_dir, "coco_eval.json"), "w") as f:
             json.dump(res, f, indent=2)
         return res
+
+
+class CocoHpMeta(CocoMeta):
+    """Reference: dataset/coco_hp.py: COCO person keypoints, one class.
+    `run_eval` is CocoMeta's: a multi_pose row's first five columns are
+    scored as a box (the JAX package has no keypoint OKS either)."""
+    name = "coco_hp"
+    num_classes = 1
+    class_name = ["__background__", "person"]
+
+    def __init__(self, data_root: str = "", nbr_points: int = 16):
+        DatasetMeta.__init__(self, data_root, nbr_points)
+        self._valid_ids = [1]
+        self.cat_ids = {1: 0}
+
+    def annot_path(self, split: str) -> str:
+        base = os.path.join(self.data_root, "coco", "annotations")
+        return os.path.join(base, f"person_keypoints_{split}2017.json")
 
 
 class PascalMeta(DatasetMeta):
@@ -417,6 +439,7 @@ DATASETS = {
     "IDD": IDDMeta,
     "idd": IDDMeta,
     "coco": CocoMeta,
+    "coco_hp": CocoHpMeta,
     "pascal": PascalMeta,
     "kitti": KittiMeta,
     # in the registry, as in the JAX package, though Config's DATASET_INFO

@@ -1,6 +1,7 @@
 """Synthetic datasets for smoke runs and tests: polygons in the Cityscapes
-layout (`write_rect_fixture`) and boxes in a box dataset's layout
-in COCO's layout (`write_box_fixture`).
+layout (`write_rect_fixture`), boxes in COCO's layout
+(`write_box_fixture`) and person keypoints in COCO's layout
+(`write_keypoint_fixture`).
 
 Frames are `.npy` (H, W, 3) uint8: dark noise with 1-3 filled rectangles,
 each annotated as a 16-vertex polygon along its perimeter, class `car`
@@ -27,7 +28,21 @@ where CocoMeta looks for them:
   <root>/coco/images/<split>2017/img_<id>.npy (or .png)
 
 each split its own frames: dark noise with 1-5 filled rectangles, each one
-box of a category drawn from `categories`.
+box of a category drawn from `categories`.  Every annotation but each
+fifth also carries the box's `extreme_points` (top, left, bottom, right,
+each on its edge of the rectangle), which the exdet task reads; the
+others exercise its fallback to the edge midpoints.
+
+`write_keypoint_fixture` writes COCO person keypoints where CocoHpMeta
+looks for them:
+
+  <root>/coco/annotations/person_keypoints_<split>2017.json
+  <root>/coco/images/<split>2017/img_<id>.npy (or .png)
+
+1-4 persons a frame (category 1), each a filled rectangle with 17
+(x, y, v) joints in it, each joint a bright 3x3 dot where visible: about
+a fifth of the joints v = 0, a few placed outside the frame, and the
+second person of the split with no visible joint.
 """
 from __future__ import annotations
 
@@ -113,12 +128,31 @@ def write_rect_fixture(root: str, n_images: int, seed: int, h: int = 1024,
     return root
 
 
+def _extreme_points(rng, x0, y0, bw, bh) -> list:
+    """A box's [t, l, b, r] extreme points, each at a random place on its
+    edge: [[tx, ty], [lx, ly], [bx, by], [rx, ry]]."""
+    return [[float(x0 + rng.randint(0, bw + 1)), float(y0)],
+            [float(x0), float(y0 + rng.randint(0, bh + 1))],
+            [float(x0 + rng.randint(0, bw + 1)), float(y0 + bh)],
+            [float(x0 + bw), float(y0 + rng.randint(0, bh + 1))]]
+
+
+def _write_frame(img_dir, name, img, png):
+    if png:
+        write_frame(os.path.join(img_dir, name), img)
+    else:
+        np.save(os.path.join(img_dir, name), img)
+
+
 def write_box_fixture(root: str, counts: dict, seed: int, h: int = 480,
                       w: int = 640, categories=(1,), png: bool = False) -> str:
     """Write `counts[split]` frames of each split under `root` in COCO's
     layout (CocoMeta), boxes of the COCO category ids `categories`; image
-    ids run on across the splits.  Returns `root`."""
+    ids run on across the splits.  The extreme points come from a second
+    generator, so frames and boxes do not depend on them.  Returns
+    `root`."""
     rng = np.random.RandomState(seed)
+    ext = np.random.RandomState(seed + 1)
     meta = CocoMeta(root)
     img_id = 0
     for split, n in counts.items():
@@ -133,17 +167,17 @@ def write_box_fixture(root: str, counts: dict, seed: int, h: int = 480,
                 x0 = int(rng.randint(2, w - bw - 3))
                 y0 = int(rng.randint(2, h - bh - 3))
                 img[y0:y0 + bh + 1, x0:x0 + bw + 1] = rng.randint(140, 256, 3)
-                annotations.append({
-                    "id": len(annotations), "image_id": img_id,
-                    "category_id": int(categories[rng.randint(
-                        len(categories))]),
-                    "bbox": [float(x0), float(y0), float(bw), float(bh)],
-                    "area": float(bw * bh), "iscrowd": 0})
+                ann = {"id": len(annotations), "image_id": img_id,
+                       "category_id": int(categories[rng.randint(
+                           len(categories))]),
+                       "bbox": [float(x0), float(y0), float(bw), float(bh)],
+                       "area": float(bw * bh), "iscrowd": 0}
+                if ann["id"] % 5 != 4:
+                    ann["extreme_points"] = _extreme_points(ext, x0, y0, bw,
+                                                            bh)
+                annotations.append(ann)
             name = f"img_{img_id}.{'png' if png else 'npy'}"
-            if png:
-                write_frame(os.path.join(img_dir, name), img)
-            else:
-                np.save(os.path.join(img_dir, name), img)
+            _write_frame(img_dir, name, img, png)
             images.append({"id": img_id, "file_name": name, "height": h,
                            "width": w})
             img_id += 1
@@ -154,4 +188,60 @@ def write_box_fixture(root: str, counts: dict, seed: int, h: int = 480,
                        "categories": [
                            {"id": c, "name": meta.class_name[meta.cat_ids[c] + 1]}
                            for c in sorted(set(categories))]}, f)
+    return root
+
+
+def write_keypoint_fixture(root: str, counts: dict, seed: int, h: int = 480,
+                           w: int = 640, png: bool = False) -> str:
+    """Write `counts[split]` frames of each split under `root` in COCO's
+    person-keypoints layout (CocoHpMeta); image ids run on across the
+    splits.  Returns `root`."""
+    from .datasets import CocoHpMeta
+
+    rng = np.random.RandomState(seed)
+    meta = CocoHpMeta(root)
+    img_id = 0
+    for split, n in counts.items():
+        img_dir = os.path.join(root, "coco", "images", f"{split}2017")
+        os.makedirs(img_dir, exist_ok=True)
+        images, annotations = [], []
+        for _ in range(n):
+            img = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+            for _ in range(1 + int(rng.randint(0, 4))):
+                bw = int(rng.randint(w // 10, w // 3))
+                bh = int(rng.randint(h // 5, h // 2))
+                x0 = int(rng.randint(2, w - bw - 3))
+                y0 = int(rng.randint(2, h - bh - 3))
+                img[y0:y0 + bh + 1, x0:x0 + bw + 1] = rng.randint(100, 180, 3)
+                xs = x0 + rng.rand(17) * bw
+                ys = y0 + rng.rand(17) * bh
+                v = np.where(rng.rand(17) < 0.2, 0, 2)
+                if len(annotations) == 1:
+                    v[:] = 0
+                elif rng.rand() < 0.3:
+                    # a joint outside the frame, still labelled visible
+                    j = int(rng.randint(17))
+                    xs[j] = -6.0 if rng.rand() < 0.5 else w + 6.0
+                for x, y, vis in zip(xs, ys, v):
+                    xi, yi = int(x), int(y)
+                    if vis and 1 <= xi < w - 1 and 1 <= yi < h - 1:
+                        img[yi - 1:yi + 2, xi - 1:xi + 2] = 255
+                kps = np.stack([xs, ys, v], 1).reshape(-1)
+                annotations.append({
+                    "id": len(annotations), "image_id": img_id,
+                    "category_id": 1,
+                    "bbox": [float(x0), float(y0), float(bw), float(bh)],
+                    "area": float(bw * bh), "iscrowd": 0,
+                    "keypoints": [float(k) for k in kps],
+                    "num_keypoints": int((v > 0).sum())})
+            name = f"img_{img_id}.{'png' if png else 'npy'}"
+            _write_frame(img_dir, name, img, png)
+            images.append({"id": img_id, "file_name": name, "height": h,
+                           "width": w})
+            img_id += 1
+        path = meta.annot_path(split)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"images": images, "annotations": annotations,
+                       "categories": [{"id": 1, "name": "person"}]}, f)
     return root

@@ -2,8 +2,10 @@
 
 The 2x3 matrix is solved in closed form from the reference's three point
 correspondences (src/lib/utils/image.py:27-92) on the host;
-`warp_axis_aligned` warps on the device as two f32 matrix products.
-Points are (x, y); images are HWC at these functions.
+`warp_axis_aligned` warps on the device as two f32 matrix products, and
+`warp_affine_np` warps a rotated or sheared affine on the host in numpy
+(the multi_pose sampler's rotation; no cv2).  Points are (x, y); images
+are HWC at these functions.
 """
 from __future__ import annotations
 
@@ -73,6 +75,50 @@ def affine_transform_points(pts, trans) -> np.ndarray:
     """Apply a 2x3 affine to an (..., 2) array of (x, y) points (f64)."""
     pts = np.asarray(pts, dtype=np.float64)
     return pts @ np.asarray(trans)[:, :2].T + np.asarray(trans)[:, 2]
+
+
+def transform_preds(coords, center, scale, output_size) -> np.ndarray:
+    """Map output-grid (x, y) coords back to source-image coords (ref
+    image.py:19-24), one matrix product over all points; f32."""
+    trans = get_affine_transform(center, scale, 0, output_size, inv=True)
+    return affine_transform_points(coords, trans).astype(np.float32)
+
+
+def warp_affine_np(image: np.ndarray, trans, out_hw,
+                   fill: float = 0.0) -> np.ndarray:
+    """Bilinear affine warp of an HWC image onto an (out_h, out_w) canvas
+    for the forward 2x3 matrix `trans` (source -> output), any rotation or
+    shear, constant border `fill`: the JAX package's
+    geometry/affine.py::warp_affine in numpy f32 (the inverse of trans's
+    2x2 part applied element by element, four clipped taps each masked
+    outside the image), which is cv2.warpAffine's INTER_LINEAR without
+    its 1/32-pixel fixed-point weights and uint8 rounding.  Returns
+    (out_h, out_w, C) float32."""
+    trans = np.asarray(trans, np.float32)
+    inv_a = np.linalg.inv(trans[:, :2]).astype(np.float32)
+    t = trans[:, 2]
+    out_h, out_w = out_hw
+    gx, gy = np.meshgrid(np.arange(out_w, dtype=np.float32),
+                         np.arange(out_h, dtype=np.float32))
+    dx, dy = gx - t[0], gy - t[1]
+    sx = dx * inv_a[0, 0] + dy * inv_a[0, 1]
+    sy = dx * inv_a[1, 0] + dy * inv_a[1, 1]
+    h, w = image.shape[:2]
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    img = image.astype(np.float32)
+
+    def sample(yi, xi):
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        v = img[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)]
+        return np.where(valid[..., None], v, np.float32(fill))
+
+    one = np.float32(1)
+    return (sample(y0, x0) * (one - fx) * (one - fy)
+            + sample(y0, x0 + 1) * fx * (one - fy)
+            + sample(y0 + 1, x0) * (one - fx) * fy
+            + sample(y0 + 1, x0 + 1) * fx * fy)
 
 
 def _sampling_matrix(out_size: int, in_size: int, scale: torch.Tensor,

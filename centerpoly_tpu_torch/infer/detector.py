@@ -5,7 +5,8 @@ detectors/polydet.py:21-101 and detectors/ctdet.py:24-101, as the JAX
 package serves them: `run(image)` returns {'results': {class_id: (n, D)
 arrays}, 'tot'/'load'/'pre'/'net'/'dec'/'post'/'merge': seconds}; polydet
 rows are [x0, y0, x1, y1, score, poly..., depth], ctdet rows [x0, y0, x1,
-y1, score], in source-image coordinates.
+y1, score], in source-image coordinates.  The exdet and multi_pose
+detectors (infer/task_detectors.py) share this run loop.
 
 On the device: the axis-aligned affine warp + normalisation of the full
 frame, the model, sigmoid, optional flip average and the top-K decode.
@@ -172,16 +173,23 @@ class BaseDetector:
 
     # -- device programs -------------------------------------------------
 
+    # a task whose _decode merges the [originals; flipped] halves under
+    # flip_test keeps this True; exdet sets it False: its reference
+    # post-process reads only the unflipped rows, so the flipped half
+    # would double the device time for the same results
+    flip_tta: bool = True
+
     def _pre_device(self, frames_u8: torch.Tensor, trans, size,
                     replica: Replica | None = None) -> torch.Tensor:
         """uint8 (B, H, W, 3) frames -> normalized (B[*2], 3, inp_h, inp_w)
         network input in the model's dtype and memory format, with the
-        constants of `replica` (the detector's own by default)."""
+        constants of `replica` (the detector's own by default); doubled as
+        [originals; flipped] under flip_test where `flip_tta` is set."""
         rep = replica or self.replicas[0]
         x = torch.stack([warp_axis_aligned(f.float(), trans, size)
                          for f in frames_u8])
         x = ((x / 255.0 - rep.mean) / rep.std).permute(0, 3, 1, 2)
-        if self.cfg.flip_test:
+        if self.cfg.flip_test and self.flip_tta:
             x = torch.cat([x, x.flip(3)])
         return x.to(self.dtype, memory_format=torch.channels_last)
 
@@ -398,7 +406,7 @@ class BaseDetector:
         for j, rows in results.items():
             for row in np.asarray(rows):
                 if row[4] > cfg.vis_thresh:
-                    if len(row) > 6:
+                    if cfg.task == "polydet":
                         dbg.add_polydet(row[5:-1], int(j) - 1, row[4],
                                         img_id="detections")
                     else:
@@ -507,3 +515,10 @@ def create_detector(cfg: Config, variables: Mapping | None = None,
         raise NotImplementedError(
             f"task {cfg.task!r} is not ported yet (ROADMAP.md queue A, secondary surface)")
     return cls(cfg, variables=variables, device=device, devices=devices)
+
+
+# the exdet and multi_pose detectors (infer/task_detectors.py) subclass
+# BaseDetector, so they register once it is defined
+from .task_detectors import ExdetDetector, MultiPoseDetector  # noqa: E402
+
+DETECTORS.update({"exdet": ExdetDetector, "multi_pose": MultiPoseDetector})

@@ -1,3 +1,6 @@
-"""Training losses (the JAX package's losses/, polydet and ctdet)."""
+"""Training losses (the JAX package's losses/: polydet, ctdet, exdet and
+multi_pose)."""
 from .ctdet import CtdetLossConfig, ctdet_loss  # noqa: F401
+from .exdet import ExdetLossConfig, exdet_loss  # noqa: F401
+from .multi_pose import MultiPoseLossConfig, multi_pose_loss  # noqa: F401
 from .polydet import PolydetLossConfig, polydet_loss  # noqa: F401

@@ -18,7 +18,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from .focal import clamped_sigmoid, focal_loss
-from .normalise import global_sum
+from .normalise import mse_mean
 from .regression import (dense_l1_loss, norm_reg_l1_loss, reg_l1_loss,
                          reg_smooth_l1_loss, reg_weighted_l1_loss)
 
@@ -49,9 +49,7 @@ def ctdet_loss(outputs: List[Dict[str, torch.Tensor]],
     crit_reg = reg_smooth_l1_loss if cfg.reg_loss == "sl1" else reg_l1_loss
     for out in outputs:
         if cfg.mse_loss:
-            sq = (out["hm"] - batch["hm"]) ** 2
-            hm_l += (torch.mean(sq) if group is None else sq.sum() / global_sum(
-                sq.new_tensor(sq.numel()), group)) / num_stacks
+            hm_l += mse_mean(out["hm"], batch["hm"], group) / num_stacks
         else:
             hm_l += focal_loss(clamped_sigmoid(out["hm"]), batch["hm"],
                                group) / num_stacks

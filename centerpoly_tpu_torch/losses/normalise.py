@@ -26,3 +26,13 @@ def global_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 def share(group=None) -> float:
     """This rank's share of a constant term: 1 / world, 1 without a group."""
     return 1.0 if group is None else 1.0 / dist.get_world_size(group)
+
+
+def mse_mean(pred: torch.Tensor, target: torch.Tensor,
+             group=None) -> torch.Tensor:
+    """Mean squared error over every element of the batch, the global
+    batch with a group (the heat-map terms under mse_loss)."""
+    sq = (pred - target) ** 2
+    if group is None:
+        return torch.mean(sq)
+    return sq.sum() / global_sum(sq.new_tensor(sq.numel()), group)

@@ -1,6 +1,7 @@
 """Soft-NMS for multi-scale test-time merging (host numpy; behavior of the
 reference's Cython extension src/lib/external/nms.pyx, used by
-detectors/polydet.py:62-67 under multi-scale testing or --nms)."""
+detectors/polydet.py:62-67 under multi-scale testing or --nms, and by the
+exdet and multi_pose detectors)."""
 from __future__ import annotations
 
 import numpy as np
@@ -54,3 +55,10 @@ def soft_nms(dets: np.ndarray, nt: float = 0.5, sigma: float = 0.5,
         scores[rest] *= decay
         alive[rest] &= scores[rest] >= thresh
     return np.array(keep, dtype=np.int64)
+
+
+def soft_nms_39(dets: np.ndarray, nt: float = 0.5, sigma: float = 0.5,
+                thresh: float = 0.001, method: int = 2) -> np.ndarray:
+    """The 39-column (pose) variant (ref nms.pyx soft_nms_39): the routine
+    reads only columns :4 and updates column 4, so it is `soft_nms`."""
+    return soft_nms(dets, nt=nt, sigma=sigma, thresh=thresh, method=method)

@@ -6,6 +6,8 @@ the JAX package's test.py):
         [--infer_devices N] [--device cpu]
     python -m centerpoly_tpu_torch.test ctdet --dataset coco \
         --data_dir <root> [--load_model model_best.pth] ...
+    python -m centerpoly_tpu_torch.test exdet --dataset coco ...
+    python -m centerpoly_tpu_torch.test multi_pose --dataset coco_hp ...
 
 Runs the detector over the val split on the card (`--device cpu` runs the
 port on the CPU), with per-stage time averages for `--eval_batch 1` and a
@@ -19,7 +21,9 @@ Cityscapes names (<stem>_leftImg8bit.png -> <stem>_gtFine_instanceIds.png),
 so frames stored under other names (`.npy`) cannot be scored.  ctdet: the
 box dataset's evaluator against its val annotations (coco_eval.json for
 COCO; voc_eval.json and coco_protocol_eval.json for Pascal, UA-DETRAC and
-UAV; the native KITTI evaluator for kitti2d).
+UAV; the native KITTI evaluator for kitti2d).  exdet's rows and
+multi_pose's (box, score and 17 joints) are scored as boxes by CocoMeta's
+and CocoHpMeta's evaluator (coco_eval.json), as in the JAX package.
 """
 from __future__ import annotations
 

@@ -13,17 +13,18 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from ..losses import ctdet_loss, PolydetLossConfig, polydet_loss
+from ..losses import (PolydetLossConfig, ctdet_loss, exdet_loss,
+                      multi_pose_loss, polydet_loss)
 from ..models.layers import BatchNorm2d
 from . import mesh
 
 
 def loss_fn_for_task(task: str) -> Callable:
     """task -> loss(outputs, batch, cfg, group=None) -> (loss, stats)."""
-    if task == "polydet":
-        return polydet_loss
-    if task == "ctdet":
-        return ctdet_loss
+    losses = {"polydet": polydet_loss, "ctdet": ctdet_loss,
+              "exdet": exdet_loss, "multi_pose": multi_pose_loss}
+    if task in losses:
+        return losses[task]
     raise NotImplementedError(f"no train loss for task '{task}' in the port "
                               f"yet (ROADMAP.md queue A, secondary surface)")
 

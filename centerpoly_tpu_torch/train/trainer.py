@@ -8,8 +8,9 @@ model_last (+ optimizer), oracle head substitution during polydet's val
 Validation decodes each val batch on the host (polydet's polygons or
 ctdet's boxes), runs the dataset's eval and gates model_best on its AP:
 Cityscapes' `allAp` for polydet, the COCO-protocol `AP` of the box
-datasets; without GT it gates on -val_loss, the JAX package's rule
-(trainer.py:291-292).
+datasets; without GT, and for exdet and multi_pose, whose val batches
+the JAX package does not decode (trainer.py:160-163), it gates on
+-val_loss, the JAX package's rule (trainer.py:291-292).
 
 Over a process group (train/mesh.py; one rank per card, each with its
 shard of the loaders) the steps are data parallel (train/step.py), and
@@ -32,7 +33,8 @@ from ..data.datasets import eval_kwargs
 from ..data.loader import stack_batch
 from ..infer.detector import (ctdet_post_process, polydet_post_process,
                               resolve_device)
-from ..losses import CtdetLossConfig, PolydetLossConfig
+from ..losses import (CtdetLossConfig, ExdetLossConfig, MultiPoseLossConfig,
+                      PolydetLossConfig)
 from ..models import create_model
 from ..ops.decode import ctdet_decode, polydet_decode
 from ..utils.oracle import apply_oracles
@@ -61,12 +63,24 @@ def loss_config_for(cfg: Config):
             reg_loss=cfg.reg_loss, dense_wh=cfg.dense_wh,
             norm_wh=cfg.norm_wh, cat_spec_wh=cfg.cat_spec_wh,
             reg_offset=cfg.reg_offset)
+    if cfg.task == "exdet":
+        return ExdetLossConfig(
+            hm_weight=cfg.hm_weight, off_weight=cfg.off_weight,
+            mse_loss=cfg.mse_loss, reg_offset=cfg.reg_offset)
+    if cfg.task == "multi_pose":
+        return MultiPoseLossConfig(
+            hm_weight=cfg.hm_weight, wh_weight=cfg.wh_weight,
+            off_weight=cfg.off_weight, hp_weight=cfg.hp_weight,
+            hm_hp_weight=cfg.hm_hp_weight, mse_loss=cfg.mse_loss,
+            reg_loss=cfg.reg_loss, dense_hp=cfg.dense_hp,
+            hm_hp=cfg.hm_hp, reg_hp_offset=cfg.reg_hp_offset,
+            reg_offset=cfg.reg_offset)
     raise NotImplementedError(f"no loss config for task '{cfg.task}' in the "
                               f"port yet")
 
 
 class Trainer:
-    """Polydet or ctdet training on one device (the card unless `device` says
+    """Training of a task (polydet, ctdet, exdet, multi_pose) on one device (the card unless `device` says
     otherwise), from the seeded init; data parallel over `group`."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None,

@@ -166,7 +166,27 @@ the ctdet task (box detection, COCO's 80 classes at 512x512) on DLA-34:
      `train_vs_cpu` of a ctdet step; (d) (b)'s detections scored by
      `PascalMeta.run_eval` (VOC-07 and the COCO-protocol file) and, as
      KITTI-2D rows, by the native `run_kitti_eval`, built from cpp/ at
-     first use.
+     first use;
+ 21. the exdet task (`phase_task("exdet")`) on COCO's DLA-34 at full width
+     (heads hm_t / hm_l / hm_b / hm_r / hm_c 80 each, reg_t / reg_l /
+     reg_b / reg_r 2 each; head_conv 256, 512x512), seeded random weights,
+     on a COCO box fixture with extreme points (480x640 frames): (a)
+     `create_detector` (bf16, rowband:6): 16 launches a frame, also under
+     flip_test (flip_tta off: a batch of 1, the plain run's results),
+     `run_batch`, `run_stream` equal to `run`, run p50 and frames/s,
+     `exct_decode`'s own device ms and memory at k 40 (batch 1 and 4), f32
+     heads and the best result rows card vs CPU (also with agnostic_ex,
+     whose random weights give rows); (b) `main exdet` (batch
+     4, 512x512, f32, `off`) with validation on the val loss, one counted
+     step (16 + 16), step p50, test.py writing coco_eval.json, and
+     `train_vs_cpu` of an exdet step;
+ 22. the multi_pose task (`phase_task("multi_pose")`) on COCO-HP's
+     DLA-34 at full width (hm 1, wh 2, hps 34, hm_hp 17, hp_offset 2, reg
+     2), on a COCO keypoints fixture: as phase 21, with flip_test's
+     doubled batch (16 launches, the best rows equal to the CPU's flip
+     run), test.py scoring the 39-column rows through CocoHpMeta, and a
+     step of `main multi_pose --aug_rot 1 --rotate 30` (finite; the
+     loader's host ms a batch beside the unrotated one's).
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -1114,8 +1134,9 @@ def phase_train_vs_cpu(root):
 
 def train_vs_cpu(root, arch, kernel, mode, nodes=16, task="polydet"):
     """One f32 train step of `arch` on the card (TF32 off) against the
-    port on the CPU at 128x256 (ctdet: 128x128, 80 classes, on the COCO
-    box fixture under `root`), batch 2, from the trainer's seeded init;
+    port on the CPU at 128x256 (ctdet and exdet: 128x128, 80 classes, on
+    the COCO box fixture under `root`; multi_pose: 128x128 on the COCO
+    keypoints fixture under `root`), batch 2, from the trainer's seeded init;
     `mode` is the DCN mode whose backward kernel must run once a DCN node
     (`nodes`: DLA-34 16, resdcn 3) a step on the card, None for a net with
     no DCNv2 node (no launch at all).
@@ -1154,9 +1175,10 @@ def train_vs_cpu(root, arch, kernel, mode, nodes=16, task="polydet"):
              torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if task == "ctdet":
-        cfg = Config(task="ctdet", dataset="coco", arch=arch, input_h=128,
-                     input_w=128, lr=2e-4, dcn_kernel=kernel)
+    if task != "polydet":
+        cfg = Config(task=task, dataset=TASK_DATASETS.get(task, "coco"),
+                     arch=arch, input_h=128, input_w=128, lr=2e-4,
+                     dcn_kernel=kernel)
     else:
         cfg = Config(arch=arch, input_h=128, input_w=256, rep="polar",
                      poly_loss="l1+iou", poly_order=True, lr=2e-4,
@@ -3322,6 +3344,299 @@ def phase_ctdet(root):
     return dict(kern, run=run_launches, step=step)
 
 
+# ---- phases 21 and 22: the exdet and multi_pose tasks ----------------------
+
+# each task's dataset, its phase number and the seed offset of its weights
+TASK_DATASETS = {"exdet": "coco", "multi_pose": "coco_hp"}
+TASK_PHASES = {"exdet": 21, "multi_pose": 22}
+
+
+def task_frames(root, dataset):
+    """A fixture's val frames (480x640 uint8) and image ids."""
+    from centerpoly_tpu_torch.data import DATASETS, CocoPolyAnnotations
+    meta = DATASETS[dataset](root)
+    ann = CocoPolyAnnotations(meta.annot_path("val"))
+    ids = ann.get_img_ids()
+    return ids, [np.load(os.path.join(meta.img_dir("val"),
+                                      ann.load_img(i)["file_name"]))
+                 for i in ids]
+
+
+def decode_times(task, det, frames):
+    """The task's decode alone (exdet: `exct_decode` at k = min(K, 40),
+    num_dets K; multi_pose: `multi_pose_decode` with the joint snap at K)
+    on the sigmoid maps of a bf16 forward, on the card: device ms by CUDA
+    events over 20 calls (after 3) at batch 1 and at the batch of
+    run_batch, and the memory it allocates above its inputs at each."""
+    import torch
+    from centerpoly_tpu_torch.ops.decode import exct_decode, multi_pose_decode
+    cfg = det.cfg
+    trans, meta = det._scaled_trans(*frames[0].shape[:2], 1.0)
+    with torch.no_grad():
+        x = det._pre_device(torch.from_numpy(np.stack(frames)).cuda(), trans,
+                            (meta["inp_h"], meta["inp_w"]))
+        heads = det._heads(x)
+    out = {k: v.float().permute(0, 2, 3, 1) for k, v in heads.items()}
+    res = {}
+    for b in (1, len(frames)):
+        o = {k: v[:b] for k, v in out.items()}
+        if task == "exdet":
+            heats = [torch.sigmoid(o[f"hm_{p}"]) for p in "tlbrc"]
+            regs = [o[f"reg_{p}"] for p in "tlbr"]
+
+            def fn():
+                return exct_decode(*heats, *regs, k=min(cfg.K, 40),
+                                   num_dets=cfg.K)
+        else:
+            args = (torch.sigmoid(o["hm"]), o["wh"], o["hps"], o["reg"],
+                    torch.sigmoid(o["hm_hp"]), o["hp_offset"])
+
+            def fn():
+                return multi_pose_decode(*args, k=cfg.K)
+        with torch.no_grad():
+            ms = cuda_ms(fn, 3, 20)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        res[b] = {"ms": ms, "mib": mib}
+        what = (f"exct_decode, k {min(cfg.K, 40)}: {min(cfg.K, 40) ** 4} "
+                f"lattice cells an image" if task == "exdet"
+                else f"multi_pose_decode, K {cfg.K}")
+        print(f"[{task}] decode alone at batch {b} ({what}): {ms:.3f} ms "
+              f"device time, {mib:.1f} MiB allocated above its inputs")
+    return res
+
+
+def phase_task_infer(task, root):
+    """Phases 21 (a) and 22 (a): `create_detector(serving_config(task,
+    dataset))` at full width (DLA-34, head_conv 256, 512x512 input, K 128,
+    bf16, rowband:6), seeded random weights, on the fixture's 480x640 val
+    frames: `run` with the launch counts zeroed just before and read just
+    after (16 `dcn_fwd[rowband]` a frame), one `run` under flip_test
+    (exdet: a batch of 1 and the plain run's results, flip_tta off;
+    multi_pose: a doubled batch, still 16 launches), `run_batch` of 4 (16),
+    `run_stream` equal to `run` frame by frame (cuDNN deterministic), run
+    p50 and run_batch frames/s (`e2e_times`), the decode's own device
+    time (`decode_times`); then in f32 (TF32 off) the heads on the card
+    within 2e-3 of the port on the CPU and the results within score 1e-3
+    and 1 px of the CPU's (`results_agree`, two frames; multi_pose also
+    under flip_test, exdet also with agnostic_ex, whose random weights
+    give rows).  Returns (launches a frame, `decode_times`)."""
+    import torch
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.models import create_model
+
+    dataset = TASK_DATASETS[task]
+    cfg = serving_config(task=task, dataset=dataset)
+    check((cfg.input_h, cfg.input_w, cfg.head_conv)
+          == (*CTDET_INPUTS["coco"], 256), f"{task} config")
+    print(f"[{task}] heads {cfg.heads}")
+    sd = random_state_dict(create_model(cfg.arch, cfg.heads, cfg.head_conv),
+                           SEED + TASK_PHASES[task])
+    ids, frames = task_frames(root, dataset)
+    det = create_detector(cfg, sd)
+    check(det.device.type == "cuda" and det.dtype == torch.bfloat16,
+          f"detector on {det.device} in {det.dtype}")
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for i, frame in zip(ids, frames):
+        ret, n = run_counted(lambda: det.run(frame), "rowband")
+        runs[i] = ret["results"]
+        for rows in ret["results"].values():
+            check(np.isfinite(rows).all(), f"{task} frame {i}: not finite")
+    width = {"exdet": 5, "multi_pose": 39}[task]
+    counts = [sum(map(len, r.values())) for r in runs.values()]
+    check(all(r.shape[1] == width for v in runs.values() for r in v.values()
+              if len(r)), f"{task} rows are not {width} wide")
+    det_f = create_detector(serving_config(task=task, dataset=dataset,
+                                           flip_test=True), sd)
+    batches = []
+    hook = det_f.model.register_forward_pre_hook(
+        lambda mod, args: batches.append(args[0].shape[0]))
+    ret_f, n_f = run_counted(lambda: det_f.run(frames[0]), "rowband")
+    hook.remove()
+    check(batches == [2 if task == "multi_pose" else 1],
+          f"{task} flip_test ran batches {batches}")
+    if task == "exdet":
+        check(same_results(ret_f["results"], runs[ids[0]]),
+              "exdet under flip_test differs from the plain run")
+    del det_f
+    batch, nb = run_counted(lambda: det.run_batch(frames), "rowband")
+    check(len(batch) == len(frames), "run_batch returned the wrong count")
+    zero_counts()
+    streamed = list(det.run_stream(iter(frames), depth=2))
+    counts_s = {k: v for k, v in dcn.launches.items() if v}
+    torch.backends.cudnn.deterministic = flags
+    check(counts_s == {"rowband": 16 * len(frames)},
+          f"run_stream launches {counts_s}")
+    for i, got in zip(ids, streamed):
+        check(same_results(got, runs[i]), f"{task} run_stream frame {i} "
+              f"differs from run()")
+    print(f"[{task}] bf16 rowband:6 on {len(frames)} {CTDET_FRAME_HW[1]}x"
+          f"{CTDET_FRAME_HW[0]} frames: run {n} dcn_fwd launches a frame, "
+          f"under flip_test {n_f} on a batch of {batches[0]}, run_batch of "
+          f"{len(frames)} {nb}, run_stream equal to run; rows a frame "
+          f"{counts}")
+    e2e_times(det, f"{task} rowband:6", frames)
+    dec = decode_times(task, det, frames)
+    del det
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # exdet's 80-class lattice finds no four peaks of one class in order on
+    # random weights (no rows): its results are also held with the
+    # class-agnostic edge maps (agnostic_ex), which give rows on frames of
+    # uniform noise (on the fixture's dark frames they give none either)
+    variants = {"multi_pose": [{}, {"flip_test": True}],
+                "exdet": [{}, {"agnostic_ex": True}]}[task]
+    for kw in variants:
+        cfg32 = serving_config(task=task, dataset=dataset,
+                               mixed_precision=False, **kw)
+        if kw.get("agnostic_ex"):
+            sd = random_state_dict(create_model(
+                cfg32.arch, cfg32.heads, cfg32.head_conv),
+                SEED + TASK_PHASES[task])
+        det32 = create_detector(cfg32, sd)
+        det_cpu = create_detector(cfg32, sd, device="cpu")
+        tag = "".join(f" {k}" for k in kw)
+        if not kw:
+            trans, meta = det_cpu._scaled_trans(*CTDET_FRAME_HW, 1.0)
+            with torch.no_grad():
+                x = det_cpu._pre_device(torch.from_numpy(frames[0])[None],
+                                        trans, (meta["inp_h"], meta["inp_w"]))
+                ref = det_cpu._heads(x)
+                got = det32._heads(x.to("cuda",
+                                        memory_format=torch.channels_last))
+            check_heads(f"{task} 512x512", ref, got)
+        cmp = frames[:2]
+        if kw.get("agnostic_ex"):
+            cmp = [np.random.RandomState(SEED + i).randint(
+                0, 256, (*CTDET_FRAME_HW, 3), dtype=np.uint8) for i in (0, 1)]
+        card = {i: det32.run(f)["results"] for i, f in enumerate(cmp)}
+        cpu = {i: det_cpu.run(f)["results"] for i, f in enumerate(cmp)}
+        ds, dc = results_agree(card, cpu, (f"the card{tag}", f"the CPU{tag}"),
+                               score_tol=1e-3, px_tol=1.0)
+        rows = [sum(map(len, r.values())) for r in card.values()]
+        check(min(rows) > 0 or (task, kw) == ("exdet", {}),
+              f"{task}{tag}: no rows to compare")
+        print(f"[{task}] f32{tag}: rows a frame {rows}, the best {EVAL_TOP} "
+              f"of each within score {ds:.2e} and {dc:.2e} px of the CPU's")
+        del det32, det_cpu
+    return n, dec
+
+
+def loader_ms(loader) -> float:
+    """Host ms a batch over one pass of a loader (num_workers 0: the
+    sampler's own time)."""
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def task_argv(task, root, *extra):
+    return [task, "--dataset", TASK_DATASETS[task], "--data_dir", root,
+            "--save_dir", os.path.join(root, "exp"), *extra]
+
+
+def phase_task_train(task, root):
+    """Phases 21 (b) and 22 (b): `main <task>` on the fixture for one epoch
+    (batch 4, 512x512, f32, `off`: 16 exact forward + 16 backward launches
+    a step) with `--val_intervals 1` (the val loss gates model_best, as in
+    JAX); the loss finite and falling on a fixed batch; one more step with
+    the launch counts zeroed just before and read just after; step p50,
+    images/s and peak memory; the loader's host ms a batch; test.py on
+    model_best (f32, `off`) writes coco_eval.json through the dataset's
+    meta (CocoMeta, CocoHpMeta: 39-column rows scored as boxes);
+    `train_vs_cpu` of one step; multi_pose also `main` with `--aug_rot 1
+    --rotate 30`, a step of it finite and its loader's host ms a batch.
+    Returns (the counts of one step, {loader: ms a batch})."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch import test as ttest
+    from centerpoly_tpu_torch.kernels import dcn
+
+    common = ["--batch_size", str(TRAIN_BATCH), "--num_workers", "0",
+              "--num_epochs", "1", "--dcn_kernel", "off"]
+    zero_counts()
+    tr = tmain.main(task_argv(task, root, "--exp_id", task, "--val_intervals",
+                              "1", *common), device="cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    steps, n_val = tr.state.step, len(tr.val_loader)
+    print(f"[{task}-train] main {task} --dcn_kernel off: {steps} steps of "
+          f"batch {TRAIN_BATCH} at {tr.cfg.input_h}x{tr.cfg.input_w} + "
+          f"{n_val} val batches; launches {counts}; best (-val loss) "
+          f"{tr.best:.4f}")
+    check((tr.cfg.input_h, tr.cfg.input_w) == CTDET_INPUTS["coco"]
+          and steps == 2 and n_val == 1
+          and counts == {"exact": 16 * (steps + n_val),
+                         "bwd_exact": 16 * steps},
+          "expected 16 forward + 16 backward launches a step")
+    save_dir = os.path.join(root, "exp", TASK_DATASETS[task], task, task)
+    best = os.path.join(save_dir, "model_best.pth")
+    check(np.isfinite(tr.best) and os.path.isfile(best),
+          f"no model_best.pth after main {task}")
+    loss_falls(tr, f"{task} off")
+    step = step_launches(tr, 16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    step_times(tr, f"{task} off")
+    host = {"plain": loader_ms(tr.train_loader)}
+    del tr
+    torch.cuda.empty_cache()
+    if task == "multi_pose":
+        tr = tmain.main(task_argv(task, root, "--exp_id", "rot",
+                                  "--val_intervals", "0", "--aug_rot", "1",
+                                  "--rotate", "30", *common), device="cuda")
+        batch = tr.put(next(iter(tr.train_loader)))
+        tr.state, stats = tr.train_step(tr.state, batch)
+        loss = float(stats["loss"])
+        check(np.isfinite(loss) and float(batch["reg_mask"].sum()) == 0,
+              f"rotated multi_pose step: loss {loss}")
+        host["rotated"] = loader_ms(tr.train_loader)
+        print(f"[{task}-train] --aug_rot 1 --rotate 30: a step's loss "
+              f"{loss:.4f} (targets blanked by the rotation)")
+        del tr
+    print(f"[{task}-train] loader host time a batch of {TRAIN_BATCH} "
+          f"(num_workers 0): " + ", ".join(f"{k} {v:.1f} ms"
+                                           for k, v in host.items()))
+    out = ttest.main(task_argv(task, root, "--exp_id", task, "--load_model",
+                               best, "--dcn_kernel", "off",
+                               "--no_mixed_precision"), device="cuda")
+    check(out["frames"] == CTDET_SPLITS["val"] and out["ap"] is not None
+          and os.path.isfile(os.path.join(save_dir, "coco_eval.json"))
+          and all(np.isfinite(list(out["ap"].values()))),
+          f"test.py {task}: {out['ap']}")
+    print(f"[{task}-train] test.py on model_best (f32, off): AP "
+          f"{out['ap']['AP']} AP50 {out['ap']['AP50']} (random weights)")
+    train_vs_cpu(root, "dla_34", "off", "exact", task=task)
+    return step, host
+
+
+def phase_task(task, root):
+    """Phase 21 (exdet) or 22 (multi_pose): see the module doc.  Returns
+    the fields of the kernels line."""
+    from centerpoly_tpu_torch.data.fixture import (write_box_fixture,
+                                                   write_keypoint_fixture)
+    t0 = time.perf_counter()
+    root = os.path.join(root, task)
+    if task == "exdet":
+        write_box_fixture(root, CTDET_SPLITS, SEED, *CTDET_FRAME_HW,
+                          categories=CTDET_IDS)
+    else:
+        write_keypoint_fixture(root, CTDET_SPLITS, SEED, *CTDET_FRAME_HW)
+    run, dec = phase_task_infer(task, root)
+    step, host = phase_task_train(task, root)
+    print(f"[{task}] phase {TASK_PHASES[task]} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"run": run, "step": step, "decode": dec, "host": host}
+
+
 def main() -> int:
     import argparse
     import tempfile
@@ -3375,6 +3690,7 @@ def main() -> int:
         csv_launches = phase_run_on_csv(sd, weights, root, card)
         conv = phase_convergence(root, card)
         ctdet = phase_ctdet(root)
+        tasks = {t: phase_task(t, root) for t in TASK_PHASES}
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],
@@ -3418,6 +3734,11 @@ def main() -> int:
                       pre + "plain_ms": t["frame"][mode]["plain_ms"],
                       pre + "bound_ms": t["bound_ms"],
                       pre + "bound_by": t["bound_by"]})
+    # phases 21 and 22: exdet's and multi_pose's launches a frame
+    # (rowband:6) and a train step (exact)
+    for t, res in tasks.items():
+        kernels[1][f"{t}_run_launches"] = res["run"]
+        kernels[0][f"{t}_train_step_launches"] = res["step"]["exact"]
     for k, mode in zip(kernels, FWD_CLAMPS):
         node, node32 = resdcn_node["fwd"][mode], resdcn_node["fwd_f32"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})
@@ -3440,6 +3761,8 @@ def main() -> int:
     kernels[3]["resdcn101_train_step_launches"] = resdcn101["bwd_exact"]
     kernels[3].update(conv_fields(conv, "bwd_exact"))
     kernels[3]["ctdet_train_step_launches"] = ctdet["step"]["bwd_exact"]
+    for t, res in tasks.items():
+        kernels[3][f"{t}_train_step_launches"] = res["step"]["bwd_exact"]
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         k.update({"ctdet_node_shapes": ctdet["shapes"],
                   "ctdet_nodes_max_abs_err": ctdet["bwd_err"][mode]})

@@ -536,6 +536,71 @@ def test_ctdet_run_on_card_matches_cpu(cuda):
         assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
 
 
+@pytest.mark.parametrize("task,dataset", [("exdet", "coco"),
+                                          ("multi_pose", "coco_hp")])
+def test_task_heads_and_launches_on_card(cuda, tmp_path, task, dataset):
+    """chip_smoke.py phases 21 and 22 in small: the exdet and multi_pose
+    detectors (DLA-34, head_conv 64, 128x128 input, f32, TF32 off,
+    rowband:6) on a 160x120 frame: 16 `dcn_fwd` launches a frame (also
+    under flip_test: exdet a batch of 1, multi_pose a doubled batch),
+    every head on the card within 2e-3 relative max of the CPU's; then
+    one train step of `main` at batch 2 (`off`): 16 exact forward and 16
+    backward launches."""
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch.data.fixture import (write_box_fixture,
+                                                   write_keypoint_fixture)
+    cfg = Config(task=task, dataset=dataset, input_h=128, input_w=128,
+                 head_conv=64, K=32, mixed_precision=False)
+    assert cfg.prefer_fast_inference_dcn()
+    det_cpu = create_detector(cfg, device="cpu")
+    sd = det_cpu.model.state_dict()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, v in sd.items():
+            if "conv_offset_mask" in name:
+                v.normal_(0, 0.3, generator=gen)
+    det_cpu = create_detector(cfg, sd, device="cpu")
+    frame = np.random.RandomState(0).randint(0, 256, (120, 160, 3),
+                                             dtype=np.uint8)
+    for flip in (False, True):
+        cfg.flip_test = flip
+        det = create_detector(cfg, sd)
+        batches = []
+        det.model.register_forward_pre_hook(
+            lambda mod, args: batches.append(args[0].shape[0]))
+        before = dict(dcn.launches)
+        ret = det.run(frame)
+        torch.cuda.synchronize()
+        assert dcn.launches["rowband"] == before["rowband"] + 16
+        assert batches == [2 if flip and task == "multi_pose" else 1]
+        for rows in ret["results"].values():
+            assert np.isfinite(rows).all()
+    trans, meta = det_cpu._scaled_trans(120, 160, 1.0)
+    with torch.no_grad():
+        x = det_cpu._pre_device(torch.from_numpy(frame)[None], trans,
+                                (meta["inp_h"], meta["inp_w"]))
+        ref = det_cpu._heads(x)
+        got = det._heads(x.to(cuda, memory_format=torch.channels_last))
+    assert set(got) == set(cfg.heads)
+    for k in ref:
+        assert _rel(got[k].cpu(), ref[k]) < 2e-3, k
+    root = str(tmp_path)
+    if task == "exdet":
+        write_box_fixture(root, {"train": 2}, 0, 120, 160, categories=(1,))
+    else:
+        write_keypoint_fixture(root, {"train": 2}, 0, 120, 160)
+    before = dict(dcn.launches)
+    tr = tmain.main([task, "--dataset", dataset, "--data_dir", root,
+                     "--save_dir", root + "/exp", "--input_h", "128",
+                     "--input_w", "128", "--head_conv", "64", "--batch_size",
+                     "2", "--num_workers", "0", "--num_epochs", "1",
+                     "--dcn_kernel", "off"], device="cuda")
+    torch.cuda.synchronize()
+    assert tr.state.step == 1
+    assert dcn.launches["exact"] - before["exact"] == 16
+    assert dcn.launches["bwd_exact"] - before["bwd_exact"] == 16
+
+
 @pytest.mark.parametrize("eval_batch", [1, 2])
 def test_eval_cli_on_card(cuda, tmp_path, monkeypatch, eval_batch):
     """`python -m centerpoly_tpu_torch.test` on the card (bf16, the

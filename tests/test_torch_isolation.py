@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing it (every module) pulls in
 neither JAX nor the JAX package, and no source names either; nor does
 chip_smoke.py, which runs where JAX is not installed.  Every module
-imports, and the polydet and ctdet eval paths run, without PIL and cv2,
-which that machine lacks too."""
+imports, and the polydet, ctdet, exdet and multi_pose paths run, without
+PIL and cv2, which that machine lacks too."""
 import os
 import subprocess
 import sys
@@ -109,6 +109,54 @@ def test_ctdet_path_needs_no_pil_cv2_or_jax(tmp_path):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", _CTDET_WITHOUT_PIL_CV2,
                            str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "AP " in proc.stdout
+
+
+_TASKS_WITHOUT_PIL_CV2 = """
+import sys
+sys.modules["PIL"] = sys.modules["cv2"] = None
+from centerpoly_tpu_torch import main, test
+from centerpoly_tpu_torch.data.fixture import (write_box_fixture,
+                                               write_keypoint_fixture)
+task = sys.argv[2]
+if task == "exdet":
+    root = write_box_fixture(sys.argv[1], {"train": 2, "val": 2}, 0, 96, 128,
+                             categories=(1, 18), png=True)
+    dataset, extra = "coco", []
+else:
+    root = write_keypoint_fixture(sys.argv[1], {"train": 2, "val": 2}, 0, 96,
+                                  128, png=True)
+    dataset, extra = "coco_hp", ["--aug_rot", "1", "--rotate", "30"]
+args = [task, "--dataset", dataset, "--data_dir", root, "--save_dir",
+        root + "/exp", "--input_h", "64", "--input_w", "64", "--head_conv",
+        "16", "--K", "8", "--device", "cpu"]
+main.main(args + ["--batch_size", "2", "--num_workers", "0",
+                  "--num_epochs", "1", "--val_intervals", "1"] + extra)
+out = test.main(args)
+assert out["ap"] is not None and out["frames"] == 2, out
+mods = ("centerpoly_tpu_torch.infer.task_detectors",
+        "centerpoly_tpu_torch.eval.coco_eval",
+        f"centerpoly_tpu_torch.data.{task}_sampler",
+        f"centerpoly_tpu_torch.losses.{task}")
+assert all(m in sys.modules for m in mods)
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "centerpoly_tpu" or m.startswith("centerpoly_tpu.")]
+assert not bad, bad
+print("AP", out["ap"]["AP"])
+"""
+
+
+@pytest.mark.parametrize("task", ["exdet", "multi_pose"])
+def test_exdet_and_multi_pose_need_no_pil_cv2_or_jax(tmp_path, task):
+    """`main exdet` / `main multi_pose` (multi_pose with the rotated warp)
+    and test.py on a PNG fixture, with PIL and cv2 unimportable: the
+    frames read, an AP comes out, and neither JAX nor the JAX package was
+    imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _TASKS_WITHOUT_PIL_CV2,
+                           str(tmp_path), task], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "AP " in proc.stdout
