@@ -2,8 +2,8 @@
 
 The port's own copy of the JAX package's `Config` (itself the reference's
 argparse `opts`, src/lib/opts.py:9-459), cut to the fields the inference,
-polydet, ctdet, exdet and multi_pose training, eval and data-parallel
-slices read.  The DCN mode
+polydet, ctdet, exdet, multi_pose and ddd (3D boxes on KITTI) training,
+eval and data-parallel slices read.  The DCN mode
 travels to the model as the `dcn_kernel` argument; nothing here writes
 environment variables.
 """
@@ -154,6 +154,11 @@ class Config:
     poly_weight: float = 1.0
     depth_weight: float = 0.1
     wh_weight: float = 0.1
+    # ddd loss weights and flags (ref opts.py ddd section)
+    dep_weight: float = 1.0
+    dim_weight: float = 1.0
+    rot_weight: float = 1.0
+    reg_bbox: bool = True          # ddd: a wh head (2D box size)
     # multi_pose loss weights and flags
     hp_weight: float = 1.0
     hm_hp_weight: float = 1.0
@@ -174,6 +179,8 @@ class Config:
     no_color_aug: bool = False
     aug_rot: float = 0.0           # multi_pose: probability of a rotation
     rotate: float = 0.0            # multi_pose: its scale in degrees
+    aug_ddd: float = 0.5           # ddd: probability of the scale and
+                                   # shift augmentation
 
     # debug views of the detector (ref opts.py:19-24): 0 = off, 1-3 =
     # compose the heat-map blend and the detection overlay, 4 = also save
@@ -186,6 +193,7 @@ class Config:
     nms: bool = False
     K: int = 128
     thresh: float = 0.05           # score cut of the eval masks
+    peak_thresh: float = 0.2       # ddd: score cut of merge_outputs
     fix_res: bool = True
     flip_test: bool = False
     vis_thresh: float = 0.3
@@ -237,7 +245,7 @@ class Config:
                                 self.reg_offset, self.cat_spec_poly,
                                 self.cat_spec_wh,
                                 agnostic_ex=self.agnostic_ex,
-                                hm_hp=self.hm_hp,
+                                reg_bbox=self.reg_bbox, hm_hp=self.hm_hp,
                                 reg_hp_offset=self.reg_hp_offset)
 
     def prefer_fast_inference_dcn(self) -> bool:

@@ -43,6 +43,26 @@ looks for them:
 (x, y, v) joints in it, each joint a bright 3x3 dot where visible: about
 a fifth of the joints v = 0, a few placed outside the frame, and the
 second person of the split with no visible joint.
+
+`write_kitti3d_fixture` writes KITTI 3D boxes where KittiMeta looks for
+them:
+
+  <root>/kitti/annotations/kitti_3dop_<split>.json
+  <root>/kitti/images/trainval/<id:06d>.png
+  <root>/kitti/training/label_2/<id:06d>.txt
+
+1242x375 RGB frames, each with 1 to `max_objects` objects of the
+evaluated classes (Pedestrian 1, Car 2, Cyclist 3 in turn over the
+split, so each has a third of them) and one other: Van 4, Person_sitting
+5, Truck 6, Misc 7 or DontCare 9 in turn, so the sampler's ignore
+branches (-3, -2, -1) and its skip (-99) all run.  (The KITTI evaluator
+samples precision at 41 recall points: a class needs 41 objects or more
+before its own boxes as results score AP 100.)  Each box is placed in camera
+coordinates (depth 10-30 m, yaw anywhere), its 2D box the projection of
+its corners through KITTI's calibration, at least 40 px tall, inside the
+frame and clear of the others: with truncation and occlusion 0 every
+object is "easy" for the KITTI evaluator.  The label files hold the same
+numbers as the annotations, to two decimals.
 """
 from __future__ import annotations
 
@@ -244,4 +264,112 @@ def write_keypoint_fixture(root: str, counts: dict, seed: int, h: int = 480,
         with open(path, "w") as f:
             json.dump({"images": images, "annotations": annotations,
                        "categories": [{"id": 1, "name": "person"}]}, f)
+    return root
+
+
+KITTI_SIZE = (375, 1242)
+# the reference's KITTI categories (ids 1-9) and their dimensions (h, w, l)
+# in metres; DontCare has none
+KITTI_CATEGORIES = {1: "Pedestrian", 2: "Car", 3: "Cyclist", 4: "Van",
+                    5: "Person_sitting", 6: "Truck", 7: "Misc", 8: "Tram",
+                    9: "DontCare"}
+KITTI_DIMS = {1: (1.76, 0.66, 0.84), 2: (1.53, 1.63, 3.88),
+              3: (1.74, 0.60, 1.76), 4: (2.21, 1.90, 5.08),
+              5: (1.27, 0.59, 0.80), 6: (3.25, 2.59, 10.1),
+              7: (1.91, 1.51, 3.58)}
+KITTI_OTHERS = (4, 5, 9, 7, 6)
+
+
+def _kitti_object(rng, cat, boxes, calib, h, w):
+    """One object of category `cat` placed clear of `boxes`: (2D box
+    [x0, y0, x1, y1], alpha, dim, location, rotation_y), rounded to two
+    decimals; None after 200 tries."""
+    from ..geometry.ddd import compute_box_3d, project_to_image
+
+    for _ in range(200):
+        if cat == 9:
+            bw, bh = rng.uniform(40, 160), rng.uniform(40, 120)
+            x0, y0 = rng.uniform(2, w - bw - 3), rng.uniform(2, h - bh - 3)
+            box = np.round([x0, y0, x0 + bw, y0 + bh], 2)
+            geo = (-10.0, (-1.0, -1.0, -1.0), (-1000.0, -1000.0, -1000.0),
+                   -10.0)
+        else:
+            dim = np.round(np.asarray(KITTI_DIMS[cat])
+                           * rng.uniform(0.9, 1.1, 3), 2)
+            z = rng.uniform(10, 30)
+            loc = np.round([rng.uniform(-0.35, 0.35) * z, 1.65, z], 2)
+            ry = round(float(rng.uniform(-np.pi, np.pi)), 2)
+            pts = project_to_image(compute_box_3d(dim, loc, ry), calib)
+            box = np.round([*pts.min(0), *pts.max(0)], 2)
+            alpha = ry - np.arctan2(loc[0], loc[2])
+            alpha = round(float((alpha + np.pi) % (2 * np.pi) - np.pi), 2)
+            geo = (alpha, tuple(dim), tuple(loc), ry)
+        if (box[0] < 2 or box[1] < 2 or box[2] > w - 3 or box[3] > h - 3
+                or box[3] - box[1] < 40):
+            continue
+        if any(box[0] < b[2] and b[0] < box[2] and box[1] < b[3]
+               and b[1] < box[3] for b in boxes):
+            continue
+        return box, *geo
+    return None
+
+
+def write_kitti3d_fixture(root: str, counts: dict, seed: int,
+                          max_objects: int = 3) -> str:
+    """Write `counts[split]` frames of each split under `root` in KITTI's
+    layout (KittiMeta, split 3dop); image ids run on across the splits.
+    Returns `root`."""
+    from ..geometry.ddd import DEFAULT_CALIB
+    from .datasets import KittiMeta
+
+    rng = np.random.RandomState(seed)
+    meta = KittiMeta(root)
+    h, w = KITTI_SIZE
+    img_dir = os.path.join(root, "kitti", "images", "trainval")
+    label_dir = os.path.join(root, "kitti", "training", "label_2")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(label_dir, exist_ok=True)
+    img_id = 0
+    for split, n in counts.items():
+        images, annotations = [], []
+        for _ in range(n):
+            img = (rng.rand(h, w, 3) * 40).astype(np.uint8)
+            n_obj = 1 + rng.randint(max_objects)
+            cats = [1 + (len(annotations) + i) % 3 for i in range(n_obj)]
+            cats.append(KITTI_OTHERS[img_id % len(KITTI_OTHERS)])
+            boxes, lines = [], []
+            for cat in cats:
+                obj = _kitti_object(rng, cat, boxes, DEFAULT_CALIB, h, w)
+                if obj is None:
+                    continue
+                box, alpha, dim, loc, ry = obj
+                boxes.append(box)
+                x0, y0, x1, y1 = (int(v) for v in box)
+                img[y0:y1 + 1, x0:x1 + 1] = rng.randint(100, 256, 3)
+                annotations.append({
+                    "id": len(annotations), "image_id": img_id,
+                    "category_id": cat,
+                    "bbox": [float(box[0]), float(box[1]),
+                             float(box[2] - box[0]), float(box[3] - box[1])],
+                    "area": float((box[2] - box[0]) * (box[3] - box[1])),
+                    "iscrowd": 0, "alpha": alpha, "depth": float(loc[2]),
+                    "dim": [float(v) for v in dim],
+                    "location": [float(v) for v in loc], "rotation_y": ry,
+                    "truncated": 0, "occluded": 0})
+                vals = [alpha, *box, *dim, *loc, ry]
+                lines.append(f"{KITTI_CATEGORIES[cat]} 0.00 0 "
+                             + " ".join(f"{float(v):.2f}" for v in vals))
+            name = f"{img_id:06d}.png"
+            write_frame(os.path.join(img_dir, name), img)
+            with open(os.path.join(label_dir, f"{img_id:06d}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+            images.append({"id": img_id, "file_name": name, "height": h,
+                           "width": w, "calib": DEFAULT_CALIB.tolist()})
+            img_id += 1
+        path = meta.annot_path(split)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"images": images, "annotations": annotations,
+                       "categories": [{"id": i, "name": nm} for i, nm in
+                                      KITTI_CATEGORIES.items()]}, f)
     return root

@@ -5,7 +5,7 @@ detectors/polydet.py:21-101 and detectors/ctdet.py:24-101, as the JAX
 package serves them: `run(image)` returns {'results': {class_id: (n, D)
 arrays}, 'tot'/'load'/'pre'/'net'/'dec'/'post'/'merge': seconds}; polydet
 rows are [x0, y0, x1, y1, score, poly..., depth], ctdet rows [x0, y0, x1,
-y1, score], in source-image coordinates.  The exdet and multi_pose
+y1, score], in source-image coordinates.  The ddd, exdet and multi_pose
 detectors (infer/task_detectors.py) share this run loop.
 
 On the device: the axis-aligned affine warp + normalisation of the full
@@ -517,8 +517,10 @@ def create_detector(cfg: Config, variables: Mapping | None = None,
     return cls(cfg, variables=variables, device=device, devices=devices)
 
 
-# the exdet and multi_pose detectors (infer/task_detectors.py) subclass
-# BaseDetector, so they register once it is defined
-from .task_detectors import ExdetDetector, MultiPoseDetector  # noqa: E402
+# the ddd, exdet and multi_pose detectors (infer/task_detectors.py)
+# subclass BaseDetector, so they register once it is defined
+from .task_detectors import (DddDetector, ExdetDetector,  # noqa: E402
+                             MultiPoseDetector)
 
-DETECTORS.update({"exdet": ExdetDetector, "multi_pose": MultiPoseDetector})
+DETECTORS.update({"exdet": ExdetDetector, "multi_pose": MultiPoseDetector,
+                  "ddd": DddDetector})

@@ -8,6 +8,8 @@
         --data_dir <root> [--device cpu] ...
     python -m centerpoly_tpu_torch.main multi_pose --dataset coco_hp \
         --data_dir <root> [--aug_rot 1 --rotate 30] [--device cpu] ...
+    python -m centerpoly_tpu_torch.main ddd --dataset kitti \
+        --data_dir <root> [--aug_ddd 0.5] [--device cpu] ...
 
 (reference surface: src/main.py; the JAX package's main.py).  Trains on
 the card unless `--device cpu` is given.  Frames are read from the
@@ -17,8 +19,8 @@ with numpy, PNG with utils/png.py; JPEG needs cv2).  With
 of the decoded val results, which gates model_best: polydet's instance
 AP (with GT maps for the heads the `--eval_oracle_*` flags name), or
 ctdet's box AP by the dataset's evaluator (COCO's protocol for coco).
-exdet and multi_pose validate on the val loss alone, as the JAX package
-does, and gate model_best on it.
+exdet, multi_pose and ddd validate on the val loss alone, as the JAX
+package does, and gate model_best on it.
 
 `--batch_size` is the global batch.  On a host with several cards whose
 count divides it, `main` runs one process per card (NCCL on localhost),

@@ -2,13 +2,15 @@
 
 Reference decode path: src/lib/models/decode.py (_nms :13-19, the
 directional aggregation :21-73, _topk_channel :100-110, _topk :117-133,
-exct_decode :287-446, ctdet_decode :479-510, polydet_decode :512-670,
-multi_pose_decode :672-746), vectorized as in the JAX package.  Maps are
+exct_decode :287-446, ddd_decode :448-477, ctdet_decode :479-510,
+polydet_decode :512-670, multi_pose_decode :672-746), vectorized as in
+the JAX package.  Maps are
 NHWC at these functions, the JAX package's layout.  Polydet rows are
 [x0, y0, x1, y1, score, class, poly_0..poly_{2N-1}, depth], ctdet rows
 [x0, y0, x1, y1, score, class], multi_pose rows [x0, y0, x1, y1, score,
 34 joint coords, class], exdet rows [x0, y0, x1, y1, score, t_x, t_y, l_x,
-l_y, b_x, b_y, r_x, r_y, class].
+l_y, b_x, b_y, r_x, r_y, class], ddd rows [x, y, score, rot 8, depth, dim
+3, (wh 2), class].
 """
 from __future__ import annotations
 
@@ -309,3 +311,28 @@ def exct_decode(t_heat: torch.Tensor, l_heat: torch.Tensor,
             pick(t, x), pick(t, y), pick(left, x), pick(left, y),
             pick(b, x), pick(b, y), pick(r, x), pick(r, y), pick(t, cls)]
     return torch.stack(cols, 2)
+
+
+def ddd_decode(heat: torch.Tensor, rot: torch.Tensor, depth: torch.Tensor,
+               dim: torch.Tensor, wh: torch.Tensor | None = None,
+               reg: torch.Tensor | None = None, k: int = 40) -> torch.Tensor:
+    """3D box decode (ref decode.py:448-477) of NHWC maps: heat (B,H,W,C)
+    after sigmoid, rot (B,H,W,8), depth (B,H,W,1) already transformed,
+    dim (B,H,W,3), wh (B,H,W,2) or None, reg (B,H,W,2) or None.  Returns
+    (B, K, 16) rows [x, y, score, rot 8, depth, dim 3, class], 18 with
+    wh's two columns before the class."""
+    heat = pseudo_nms(heat)
+    scores, inds, clses, ys, xs = topk_heatmap(heat, k)
+    if reg is not None:
+        reg_k = gather_feat_nhwc(reg, inds)
+        xs = xs[..., None] + reg_k[:, :, 0:1]
+        ys = ys[..., None] + reg_k[:, :, 1:2]
+    else:
+        xs = xs[..., None] + 0.5
+        ys = ys[..., None] + 0.5
+    cols = [xs, ys, scores[..., None], gather_feat_nhwc(rot, inds),
+            gather_feat_nhwc(depth, inds), gather_feat_nhwc(dim, inds)]
+    if wh is not None:
+        cols.append(gather_feat_nhwc(wh, inds))
+    cols.append(clses[..., None])
+    return torch.cat(cols, 2)

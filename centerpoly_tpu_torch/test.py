@@ -8,6 +8,7 @@ the JAX package's test.py):
         --data_dir <root> [--load_model model_best.pth] ...
     python -m centerpoly_tpu_torch.test exdet --dataset coco ...
     python -m centerpoly_tpu_torch.test multi_pose --dataset coco_hp ...
+    python -m centerpoly_tpu_torch.test ddd --dataset kitti ...
 
 Runs the detector over the val split on the card (`--device cpu` runs the
 port on the CPU), with per-stage time averages for `--eval_batch 1` and a
@@ -24,6 +25,10 @@ COCO; voc_eval.json and coco_protocol_eval.json for Pascal, UA-DETRAC and
 UAV; the native KITTI evaluator for kitti2d).  exdet's rows and
 multi_pose's (box, score and 17 joints) are scored as boxes by CocoMeta's
 and CocoHpMeta's evaluator (coco_eval.json), as in the JAX package.
+ddd's 3D rows go to KittiMeta: KITTI txt files under results/ and the
+native KITTI evaluator (detection, BEV, 3D and AOS AP for easy, moderate
+and hard) against <data_dir>/kitti/training/label_2, whose dict is
+printed as it is.
 """
 from __future__ import annotations
 
@@ -153,8 +158,10 @@ def main(argv=None, device=None) -> dict:
     eval_seconds = time.perf_counter() - t0
     if ap is not None and "allAp" in ap:
         print("instance AP:", ap["allAp"], "AP50:", ap.get("allAp50%"))
+    elif ap is not None and "AP" in ap:
+        print("AP:", ap["AP"], "AP50:", ap.get("AP50"))
     elif ap is not None:
-        print("AP:", ap.get("AP"), "AP50:", ap.get("AP50"))
+        print("AP:", ap)
     else:
         print("results written to", save_dir,
               "(no GT instance images available for AP)")

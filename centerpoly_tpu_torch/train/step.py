@@ -13,7 +13,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from ..losses import (PolydetLossConfig, ctdet_loss, exdet_loss,
+from ..losses import (PolydetLossConfig, ctdet_loss, ddd_loss, exdet_loss,
                       multi_pose_loss, polydet_loss)
 from ..models.layers import BatchNorm2d
 from . import mesh
@@ -22,7 +22,8 @@ from . import mesh
 def loss_fn_for_task(task: str) -> Callable:
     """task -> loss(outputs, batch, cfg, group=None) -> (loss, stats)."""
     losses = {"polydet": polydet_loss, "ctdet": ctdet_loss,
-              "exdet": exdet_loss, "multi_pose": multi_pose_loss}
+              "exdet": exdet_loss, "multi_pose": multi_pose_loss,
+              "ddd": ddd_loss}
     if task in losses:
         return losses[task]
     raise NotImplementedError(f"no train loss for task '{task}' in the port "

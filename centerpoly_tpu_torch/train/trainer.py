@@ -8,7 +8,7 @@ model_last (+ optimizer), oracle head substitution during polydet's val
 Validation decodes each val batch on the host (polydet's polygons or
 ctdet's boxes), runs the dataset's eval and gates model_best on its AP:
 Cityscapes' `allAp` for polydet, the COCO-protocol `AP` of the box
-datasets; without GT, and for exdet and multi_pose, whose val batches
+datasets; without GT, and for exdet, multi_pose and ddd, whose val batches
 the JAX package does not decode (trainer.py:160-163), it gates on
 -val_loss, the JAX package's rule (trainer.py:291-292).
 
@@ -33,8 +33,8 @@ from ..data.datasets import eval_kwargs
 from ..data.loader import stack_batch
 from ..infer.detector import (ctdet_post_process, polydet_post_process,
                               resolve_device)
-from ..losses import (CtdetLossConfig, ExdetLossConfig, MultiPoseLossConfig,
-                      PolydetLossConfig)
+from ..losses import (CtdetLossConfig, DddLossConfig, ExdetLossConfig,
+                      MultiPoseLossConfig, PolydetLossConfig)
 from ..models import create_model
 from ..ops.decode import ctdet_decode, polydet_decode
 from ..utils.oracle import apply_oracles
@@ -63,6 +63,13 @@ def loss_config_for(cfg: Config):
             reg_loss=cfg.reg_loss, dense_wh=cfg.dense_wh,
             norm_wh=cfg.norm_wh, cat_spec_wh=cfg.cat_spec_wh,
             reg_offset=cfg.reg_offset)
+    if cfg.task == "ddd":
+        return DddLossConfig(
+            hm_weight=cfg.hm_weight, dep_weight=cfg.dep_weight,
+            dim_weight=cfg.dim_weight, rot_weight=cfg.rot_weight,
+            wh_weight=cfg.wh_weight, off_weight=cfg.off_weight,
+            mse_loss=cfg.mse_loss, reg_bbox=cfg.reg_bbox,
+            reg_offset=cfg.reg_offset)
     if cfg.task == "exdet":
         return ExdetLossConfig(
             hm_weight=cfg.hm_weight, off_weight=cfg.off_weight,
@@ -80,8 +87,9 @@ def loss_config_for(cfg: Config):
 
 
 class Trainer:
-    """Training of a task (polydet, ctdet, exdet, multi_pose) on one device (the card unless `device` says
-    otherwise), from the seeded init; data parallel over `group`."""
+    """Training of a task (polydet, ctdet, exdet, multi_pose, ddd) on one
+    device (the card unless `device` says otherwise), from the seeded
+    init; data parallel over `group`."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None,
                  logger: Optional[Logger] = None, device=None, *,

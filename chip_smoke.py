@@ -17,7 +17,9 @@ of csrc/ runs there; and on resdcn_18 and resdcn_101, whose 3 DCNv2
 nodes a forward run the same kernels (resdcn_101's first at Cin 2048),
 with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Last,
 the ctdet task (box detection, COCO's 80 classes at 512x512) on DLA-34:
-`create_detector`, `main`, `test.py` and its three evaluators.  Phases
+`create_detector`, `main`, `test.py` and its three evaluators; the exdet,
+multi_pose and ddd (3D boxes on KITTI) tasks the same way; and the
+on-device NMS and the pixel-level semantic evaluator.  Phases
 (any failure exits non-zero, with no result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
@@ -186,7 +188,27 @@ the ctdet task (box detection, COCO's 80 classes at 512x512) on DLA-34:
      doubled batch (16 launches, the best rows equal to the CPU's flip
      run), test.py scoring the 39-column rows through CocoHpMeta, and a
      step of `main multi_pose --aug_rot 1 --rotate 30` (finite; the
-     loader's host ms a batch beside the unrotated one's).
+     loader's host ms a batch beside the unrotated one's);
+ 23. the ddd task (`phase_ddd`) on KITTI's DLA-34 at full width (3
+     classes, head_conv 256, 384x1280 input; hm 3, dep 1, rot 8, dim 3,
+     wh 2, reg 2), seeded random weights, on a seeded KITTI 3D fixture
+     (`write_kitti3d_fixture`: 8 train and 4 val 1242x375 PNG frames):
+     (a) f32 heads on the card within 2e-3 of the CPU port and two
+     frames' best rows card vs CPU; (b) `create_detector` (bf16,
+     rowband:6): 16 launches a frame, also under flip_test (a batch of 1,
+     the plain results), `run_batch` of 4 (16), `run_stream` equal to
+     `run`, run p50 and frames/s, `ddd_decode`'s own device ms; (c) `main
+     ddd` (batch 4, 384x1280, f32, `off`) with validation on the val
+     loss, one counted step (16 + 16), step p50, images/s and peak
+     memory, the loader's host ms a batch with aug_ddd 0 and 1; (d)
+     test.py on (a)'s weights (f32) on the card and on the CPU through
+     KittiMeta and the native `kitti_eval` built here, their rows
+     agreeing, and a 40-frame fixture's GT as results scoring AP 100 in
+     detection, BEV and 3D;
+ 24. `soft_nms_batch` and `hard_nms_batch` on the card at K 128 against
+     the host `soft_nms`, a greedy reference and the CPU, with their
+     device ms; `evaluate_semantic` over two 1024x2048 label maps, the
+     native confusion loop built here against its numpy path.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -3637,6 +3659,450 @@ def phase_task(task, root):
     return {"run": run, "step": step, "decode": dec, "host": host}
 
 
+# ---- phase 23: the ddd task -----------------------------------------------
+
+DDD_FRAME_HW = (375, 1242)      # a KITTI frame
+DDD_SPLITS = {"train": 8, "val": 4}
+DDD_GT_FRAMES = 40              # 41+ objects a class: AP can reach 100
+DDD_TOP = 32                    # rows a frame held card vs CPU
+
+
+def ddd_frames(root):
+    """The KITTI fixture's val frames (375x1242 uint8, PNG) and ids."""
+    from centerpoly_tpu_torch.data import CocoPolyAnnotations, KittiMeta
+    from centerpoly_tpu_torch.utils.png import read_image
+    meta = KittiMeta(root)
+    ann = CocoPolyAnnotations(meta.annot_path("val"))
+    ids = ann.get_img_ids()
+    return ids, [read_image(os.path.join(meta.img_dir("val"),
+                                         ann.load_img(i)["file_name"]))
+                 for i in ids]
+
+
+def ddd_rows_agree(a, b, what, score_tol=1e-3, px_tol=1.0, rel_tol=1e-2):
+    """Two runs' ddd results ({img_id: {class: (n, 13) rows [alpha, bbox
+    4, dim 3, location 3, rotation_y, score]}}): the same frames and
+    classes, and each of a frame's `DDD_TOP` best rows of `a` found in
+    `b` in its class, its score within `score_tol`, its box within
+    `px_tol` px and every other column within `rel_tol` relative (+
+    `rel_tol`: the depth 1 / sigmoid - 1 and the lifting amplify the
+    heads' differences).  Returns the largest score, box and other
+    differences of the matched rows."""
+    check(a.keys() == b.keys(), f"{what[0]} and {what[1]}: other frames")
+    worst = [0.0, 0.0, 0.0]
+    for img_id, per in a.items():
+        other = b[img_id]
+        check(per.keys() == other.keys(), f"frame {img_id}: other classes")
+        rows = [(r[-1], cls, np.asarray(r, np.float64))
+                for cls, v in per.items() for r in np.asarray(v).reshape(
+                    -1, 13)]
+        for score, cls, row in sorted(rows, key=lambda t: -t[0])[:DDD_TOP]:
+            cand = np.asarray(other[cls], np.float64).reshape(-1, 13)
+            d_s = np.abs(cand[:, -1] - score)
+            d_b = np.abs(cand[:, 1:5] - row[1:5]).max(1)
+            rest = np.r_[0, 5:12]
+            d_r = (np.abs(cand[:, rest] - row[rest])
+                   / (1 + np.abs(row[rest]))).max(1)
+            ok = (d_s <= score_tol) & (d_b <= px_tol) & (d_r <= rel_tol)
+            check(ok.any(), f"frame {img_id}: a class {cls} row of score "
+                  f"{score:.4f} has no counterpart in {what[1]}")
+            j = np.flatnonzero(ok)[np.argmin(d_b[ok])]
+            worst = [max(worst[0], float(d_s[j])), max(worst[1], float(
+                d_b[j])), max(worst[2], float(d_r[j]))]
+    return worst
+
+
+def ddd_decode_times(det, frames):
+    """`ddd_decode` alone (pseudo-NMS, two-stage top-K at K, the gathers)
+    on the sigmoid maps of a bf16 forward, on the card: device ms by CUDA
+    events over 20 calls (after 3) at batch 1 and at run_batch's batch."""
+    import torch
+    from centerpoly_tpu_torch.losses.ddd import ddd_depth_transform
+    from centerpoly_tpu_torch.ops.decode import ddd_decode
+    trans, meta = det._scaled_trans(*frames[0].shape[:2], 1.0)
+    with torch.no_grad():
+        x = det._pre_device(torch.from_numpy(np.stack(frames)).cuda(), trans,
+                            (meta["inp_h"], meta["inp_w"]))
+        heads = det._heads(x)
+    out = {k: v.float().permute(0, 2, 3, 1) for k, v in heads.items()}
+    res = {}
+    for b in (1, len(frames)):
+        args = (torch.sigmoid(out["hm"][:b]), out["rot"][:b],
+                ddd_depth_transform(out["dep"][:b]), out["dim"][:b])
+        kw = {"wh": out["wh"][:b], "reg": out["reg"][:b], "k": det.cfg.K}
+        with torch.no_grad():
+            res[b] = cuda_ms(lambda: ddd_decode(*args, **kw), 3, 20)
+        print(f"[ddd] ddd_decode alone at batch {b} (K {det.cfg.K}, "
+              f"{out['hm'].shape[1]}x{out['hm'].shape[2]} maps): "
+              f"{res[b]:.3f} ms device time")
+    return res
+
+
+def phase_ddd_infer(root):
+    """Phase 23 (a), (b): `create_detector(serving_config(task="ddd",
+    dataset="kitti"))` at full width (DLA-34, KITTI's 3 classes, head_conv
+    256, 384x1280 input, heads hm 3 / dep 1 / rot 8 / dim 3 / wh 2 / reg
+    2, K 128, bf16, rowband:6), seeded random weights, on the fixture's
+    375x1242 val frames: `run` with the launch counts zeroed just before
+    and read just after (16 `dcn_fwd[rowband]` a frame), one `run` under
+    flip_test (a batch of 1, the plain run's results: flip_tta off, still
+    16), `run_batch` of 4 (16), `run_stream` equal to `run` frame by frame
+    (cuDNN deterministic), run p50 and frames/s (`e2e_times`) and
+    `ddd_decode`'s own device time; then in f32 (TF32 off) the heads on
+    the card within 2e-3 of the port on the CPU and two frames' best
+    rows card vs CPU (`ddd_rows_agree`).  Returns (launches a frame,
+    decode ms by batch, the weights)."""
+    import torch
+    from centerpoly_tpu_torch.infer.detector import create_detector
+    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.models import create_model
+
+    cfg = serving_config(task="ddd", dataset="kitti")
+    check((cfg.input_h, cfg.input_w, cfg.head_conv, cfg.num_classes)
+          == (*CTDET_INPUTS["kitti"], 256, 3)
+          and cfg.heads == {"hm": 3, "dep": 1, "rot": 8, "dim": 3, "wh": 2,
+                            "reg": 2}, "ddd config")
+    sd = random_state_dict(create_model(cfg.arch, cfg.heads, cfg.head_conv),
+                           SEED + 23)
+    ids, frames = ddd_frames(root)
+    det = create_detector(cfg, sd)
+    check(det.device.type == "cuda" and det.dtype == torch.bfloat16,
+          f"detector on {det.device} in {det.dtype}")
+    flags = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for i, frame in zip(ids, frames):
+        ret, n = run_counted(lambda: det.run(frame), "rowband")
+        runs[i] = ret["results"]
+        for rows in ret["results"].values():
+            check(len(rows) == 0 or (rows.shape[1] == 13
+                                     and np.isfinite(rows).all()
+                                     and (rows[:, -1] > cfg.peak_thresh).all()),
+                  f"ddd frame {i}: rows {rows.shape}")
+    counts = [sum(map(len, r.values())) for r in runs.values()]
+    check(sum(counts) > 0, "ddd: no rows above peak_thresh")
+    det_f = create_detector(serving_config(task="ddd", dataset="kitti",
+                                           flip_test=True), sd)
+    batches = []
+    hook = det_f.model.register_forward_pre_hook(
+        lambda mod, args: batches.append(args[0].shape[0]))
+    ret_f, n_f = run_counted(lambda: det_f.run(frames[0]), "rowband")
+    hook.remove()
+    check(batches == [1] and same_results(ret_f["results"], runs[ids[0]]),
+          f"ddd under flip_test: batches {batches}, or other results")
+    del det_f
+    batch, nb = run_counted(lambda: det.run_batch(frames), "rowband")
+    check(len(batch) == len(frames), "run_batch returned the wrong count")
+    zero_counts()
+    streamed = list(det.run_stream(iter(frames), depth=2))
+    counts_s = {k: v for k, v in dcn.launches.items() if v}
+    torch.backends.cudnn.deterministic = flags
+    check(counts_s == {"rowband": 16 * len(frames)},
+          f"run_stream launches {counts_s}")
+    for i, got in zip(ids, streamed):
+        check(same_results(got, runs[i]), f"ddd run_stream frame {i} "
+              f"differs from run()")
+    print(f"[ddd] bf16 rowband:6 on {len(frames)} {DDD_FRAME_HW[1]}x"
+          f"{DDD_FRAME_HW[0]} frames: run {n} dcn_fwd launches a frame, "
+          f"under flip_test {n_f} on a batch of {batches[0]} (the plain "
+          f"results), run_batch of {len(frames)} {nb}, run_stream equal to "
+          f"run; rows a frame above peak_thresh {counts}")
+    e2e_times(det, "ddd rowband:6", frames)
+    dec = ddd_decode_times(det, frames)
+    del det
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = serving_config(task="ddd", dataset="kitti", mixed_precision=False)
+    det32 = create_detector(cfg32, sd)
+    det_cpu = create_detector(cfg32, sd, device="cpu")
+    trans, meta = det_cpu._scaled_trans(*DDD_FRAME_HW, 1.0)
+    with torch.no_grad():
+        x = det_cpu._pre_device(torch.from_numpy(frames[0])[None], trans,
+                                (meta["inp_h"], meta["inp_w"]))
+        ref = det_cpu._heads(x)
+        got = det32._heads(x.to("cuda", memory_format=torch.channels_last))
+    check_heads("ddd 384x1280", ref, got)
+    card = {i: det32.run(f)["results"] for i, f in zip(ids[:2], frames)}
+    cpu = {i: det_cpu.run(f)["results"] for i, f in zip(ids[:2], frames)}
+    worst = ddd_rows_agree(card, cpu, ("the card", "the CPU"))
+    print(f"[ddd] f32 card vs CPU: the best {DDD_TOP} rows of 2 frames "
+          f"within score {worst[0]:.2e}, box {worst[1]:.2e} px, other "
+          f"columns {worst[2]:.2e} relative")
+    del det32, det_cpu
+    return n, dec, sd
+
+
+def ddd_gt_results(root):
+    """The KITTI label files of a fixture's val frames as result rows of
+    the three evaluated classes, at score 1."""
+    from centerpoly_tpu_torch.data import CocoPolyAnnotations, KittiMeta
+    from centerpoly_tpu_torch.data.fixture import KITTI_CATEGORIES
+    names = {v: k for k, v in KITTI_CATEGORIES.items()}
+    meta = KittiMeta(root)
+    gt_dir = os.path.join(root, "kitti", "training", "label_2")
+    out = {}
+    for img_id in CocoPolyAnnotations(meta.annot_path("val")).get_img_ids():
+        per = {1: [], 2: [], 3: []}
+        with open(os.path.join(gt_dir, f"{img_id:06d}.txt")) as f:
+            for line in f:
+                p = line.split()
+                if names[p[0]] in per:
+                    per[names[p[0]]].append([float(v) for v in p[3:15]]
+                                            + [1.0])
+        out[img_id] = {c: np.asarray(v, np.float32).reshape(-1, 13)
+                       for c, v in per.items()}
+    return out
+
+
+def phase_ddd_train(root, sd):
+    """Phase 23 (c), (d): `main ddd` on the fixture for one epoch (batch
+    4, 384x1280, f32, `off`: 16 exact forward + 16 backward launches a
+    step) with `--val_intervals 1` (the val loss gates model_best, as in
+    JAX); the loss falling on a fixed batch; one more step with the
+    launch counts zeroed just before and read just after; step p50,
+    images/s and peak memory; the loader's host ms a batch with aug_ddd 0
+    and 1; test.py on (a)'s random weights `sd` saved as a reference
+    checkpoint (f32, `off`) on the card and on the CPU: KittiMeta's files
+    and the native `kitti_eval` built on this machine,
+    the two runs' best rows agreeing (`ddd_rows_agree`) and their AP
+    dicts equal; then the GT of a 40-frame fixture written as results
+    scores AP 100 in detection, BEV and 3D.  Returns (the counts of one
+    step, {aug_ddd: loader ms a batch})."""
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch import test as ttest
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.data import (CocoPolyAnnotations, DddSampler,
+                                           KittiMeta, Loader)
+    from centerpoly_tpu_torch.data.fixture import write_kitti3d_fixture
+    from centerpoly_tpu_torch.kernels import dcn
+
+    def argv(*extra):
+        return ["ddd", "--dataset", "kitti", "--data_dir", root,
+                "--save_dir", os.path.join(root, "exp"), "--exp_id", "ddd",
+                *extra]
+
+    zero_counts()
+    tr = tmain.main(argv("--val_intervals", "1", "--batch_size",
+                         str(TRAIN_BATCH), "--num_workers", "0",
+                         "--num_epochs", "1", "--dcn_kernel", "off"),
+                    device="cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dcn.launches.items() if v}
+    steps, n_val = tr.state.step, len(tr.val_loader)
+    print(f"[ddd-train] main ddd --dcn_kernel off: {steps} steps of batch "
+          f"{TRAIN_BATCH} at {tr.cfg.input_h}x{tr.cfg.input_w} + {n_val} val "
+          f"batches; launches {counts}; best (-val loss) {tr.best:.4f}")
+    check((tr.cfg.input_h, tr.cfg.input_w) == CTDET_INPUTS["kitti"]
+          and steps == 2 and n_val == 1
+          and counts == {"exact": 16 * (steps + n_val),
+                         "bwd_exact": 16 * steps},
+          "expected 16 forward + 16 backward launches a step")
+    save_dir = os.path.join(root, "exp", "kitti", "ddd", "ddd")
+    best = os.path.join(save_dir, "model_best.pth")
+    check(np.isfinite(tr.best) and os.path.isfile(best),
+          "no model_best.pth after main ddd")
+    loss_falls(tr, "ddd off")
+    step = step_launches(tr, 16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    step_times(tr, "ddd off")
+    del tr
+    torch.cuda.empty_cache()
+    meta = KittiMeta(root)
+    ann = CocoPolyAnnotations(meta.annot_path("train"))
+    host = {}
+    for aug in (0.0, 1.0):
+        cfg = Config(task="ddd", dataset="kitti", aug_ddd=aug)
+        sampler = DddSampler(cfg, meta, ann, img_dir=meta.img_dir("train"))
+        host[aug] = loader_ms(Loader(sampler, len(sampler), TRAIN_BATCH))
+    print(f"[ddd-train] loader host time a batch of {TRAIN_BATCH} "
+          f"(num_workers 0): " + ", ".join(f"aug_ddd {k:g} {v:.1f} ms"
+                                           for k, v in host.items()))
+
+    # test.py on (a)'s random weights as a reference checkpoint: two steps
+    # from the seeded init leave every score near the heat map's initial
+    # 0.1 (no row above peak_thresh), and a map that flat orders its top
+    # K by the last digits, which the card and the CPU do not share
+    weights = os.path.join(root, "random_weights.pth")
+    torch.save({"epoch": 0, "state_dict": sd}, weights)
+    torch.backends.cudnn.allow_tf32 = False     # f32 against the CPU
+    common = argv("--load_model", weights, "--dcn_kernel", "off",
+                  "--no_mixed_precision")
+    out = ttest.main(common, device="cuda")
+    cpu = ttest.main(common, device="cpu")
+    n_rows = [sum(map(len, r.values())) for r in out["results"].values()]
+    check(out["frames"] == DDD_SPLITS["val"] and min(n_rows) > 0
+          and out["ap"] and os.path.isdir(os.path.join(save_dir, "results")),
+          f"test.py ddd: rows {n_rows}, AP {out['ap']}")
+    worst = ddd_rows_agree(out["results"], cpu["results"],
+                           ("test.py on the card", "test.py on the CPU"))
+    check(cpu["ap"] is not None and set(out["ap"]) == set(cpu["ap"]),
+          f"test.py's KITTI AP on the card {out['ap']} and on the CPU "
+          f"{cpu['ap']}")
+    print(f"[ddd-train] test.py on (a)'s weights (f32, off; rows a frame "
+          f"{n_rows}): kitti_eval {json.dumps(out['ap'])}; on the CPU "
+          f"{'the same' if out['ap'] == cpu['ap'] else json.dumps(cpu['ap'])}"
+          f"; the best {DDD_TOP} rows a frame within score {worst[0]:.2e}, "
+          f"box {worst[1]:.2e} px, other columns {worst[2]:.2e} relative")
+
+    gt_root = os.path.join(root, "gt")
+    write_kitti3d_fixture(gt_root, {"val": DDD_GT_FRAMES}, SEED + 1,
+                          max_objects=6)
+    gt = ddd_gt_results(gt_root)
+    n_obj = {c: sum(len(r[c]) for r in gt.values()) for c in (1, 2, 3)}
+    ap = KittiMeta(gt_root).run_eval(gt, os.path.join(gt_root, "out"))
+    check(ap is not None and set(ap) == {"car", "pedestrian", "cyclist"}
+          and all(per[m] == [100.0] * 3 for per in ap.values()
+                  for m in ("detection", "bev", "3d")),
+          f"GT as results: {ap}")
+    print(f"[ddd-train] {DDD_GT_FRAMES} frames' GT as results ({n_obj} "
+          f"objects by class): AP 100 in detection, BEV and 3D, every "
+          f"class and difficulty")
+    return step, host
+
+
+def phase_ddd(root):
+    """Phase 23: see the module doc.  Returns the fields of the kernels
+    line."""
+    from centerpoly_tpu_torch.data.fixture import write_kitti3d_fixture
+    t0 = time.perf_counter()
+    root = os.path.join(root, "ddd")
+    write_kitti3d_fixture(root, DDD_SPLITS, SEED)
+    run, dec, sd = phase_ddd_infer(root)
+    step, host = phase_ddd_train(root, sd)
+    print(f"[ddd] phase 23 in {time.perf_counter() - t0:.1f} s")
+    return {"run": run, "step": step, "decode": dec, "host": host}
+
+
+# ---- phase 24: the on-device NMS and the semantic evaluator ------------------
+
+NMS_K = 128
+
+
+def greedy_nms(boxes, scores, t):
+    """Hard NMS, one box at a time in stable score order: the reference
+    `hard_nms_batch` is held to."""
+    order = np.argsort(-scores, kind="stable")
+    keep = np.zeros(len(scores), bool)
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    for i in order:
+        kept = np.flatnonzero(keep)
+        x1 = np.maximum(boxes[i, 0], boxes[kept, 0])
+        y1 = np.maximum(boxes[i, 1], boxes[kept, 1])
+        x2 = np.minimum(boxes[i, 2], boxes[kept, 2])
+        y2 = np.minimum(boxes[i, 3], boxes[kept, 3])
+        inter = np.maximum(x2 - x1, 0) * np.maximum(y2 - y1, 0)
+        iou = inter / np.maximum(area[i] + area[kept] - inter, 1e-9)
+        keep[i] = not (iou > t).any()
+    return keep
+
+
+def phase_nms_semantic():
+    """Phase 24: `soft_nms_batch` and `hard_nms_batch` on the card at K
+    128 (seeded boxes, a tenth of the scores tied): the decayed scores
+    against the host `soft_nms` (as a set, rtol 1e-4, JAX's test's bound)
+    and against the port on the CPU (1e-6), the keep mask against a greedy
+    reference and the CPU (equal), each one's device ms (CUDA events, 10
+    calls after 2); then `evaluate_semantic` on this machine over two
+    seeded 1024x2048 label and instance maps, the native cpp/ loop (built
+    here) against its numpy path: every score equal, and each path's
+    host ms."""
+    import torch
+    from centerpoly_tpu_torch.eval import native
+    from centerpoly_tpu_torch.eval.semantic_eval import (SEMANTIC_LABELS,
+                                                         evaluate_semantic)
+    from centerpoly_tpu_torch.ops.nms import (hard_nms_batch, soft_nms,
+                                              soft_nms_batch)
+    rng = np.random.RandomState(SEED + 24)
+    xy = rng.rand(NMS_K, 2) * 400
+    wh = rng.rand(NMS_K, 2) * 80 + 10
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    scores = rng.rand(NMS_K).astype(np.float32)
+    scores[::10] = scores[0]
+    bc, sc = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
+    soft = soft_nms_batch(bc, sc, thresh=0.0)
+    check(soft.device.type == "cuda", "soft_nms_batch left the card")
+    host = np.concatenate([boxes, scores[:, None]], 1)
+    soft_nms(host, method=2, thresh=0.0)
+    soft_cpu = soft_nms_batch(torch.from_numpy(boxes),
+                              torch.from_numpy(scores), thresh=0.0).numpy()
+    d_host = float(np.abs(np.sort(soft.cpu().numpy())
+                          - np.sort(host[:, 4])).max())
+    d_cpu = float(np.abs(soft.cpu().numpy() - soft_cpu).max())
+    check(np.allclose(np.sort(soft.cpu().numpy()), np.sort(host[:, 4]),
+                      rtol=1e-4) and d_cpu <= 1e-6,
+          f"soft_nms_batch: {d_host} from the host soft_nms, {d_cpu} from "
+          f"the CPU")
+    times = {}
+    for t in (0.5, 0.7):
+        keep = hard_nms_batch(bc, sc, t).cpu().numpy()
+        check(np.array_equal(keep, greedy_nms(boxes, scores, t))
+              and np.array_equal(keep, hard_nms_batch(
+                  torch.from_numpy(boxes), torch.from_numpy(scores),
+                  t).numpy()),
+              f"hard_nms_batch at {t}: other boxes kept")
+    with torch.no_grad():
+        times["soft_nms_batch"] = cuda_ms(lambda: soft_nms_batch(bc, sc), 2,
+                                          10)
+        times["hard_nms_batch"] = cuda_ms(lambda: hard_nms_batch(bc, sc), 2,
+                                          10)
+    print(f"[nms] K {NMS_K} on the card: soft_nms_batch within "
+          f"{d_host:.2e} of the host soft_nms and {d_cpu:.2e} of the CPU, "
+          f"{times['soft_nms_batch']:.3f} ms device time; hard_nms_batch "
+          f"(0.5, 0.7) equal to the greedy reference and the CPU, "
+          f"{times['hard_nms_batch']:.3f} ms (K sequential steps each)")
+
+    check(native._load() is not None,
+          f"the native library did not build: {native.last_build_error}")
+    inst_ids = [l.id for l in SEMANTIC_LABELS
+                if l.has_instances and not l.ignore_in_eval]
+    pairs, inst_pairs = [], []
+    for _ in range(2):
+        blocks = rng.randint(0, 34, (64, 128))
+        gt = np.kron(blocks, np.ones((16, 16), np.int64)).astype(np.uint8)
+        inst = gt.astype(np.int32)
+        for k in range(20):
+            cls = inst_ids[rng.randint(len(inst_ids))]
+            y0, x0 = rng.randint(0, 900), rng.randint(0, 1800)
+            y1, x1 = y0 + rng.randint(20, 120), x0 + rng.randint(20, 240)
+            gt[y0:y1, x0:x1] = cls
+            inst[y0:y1, x0:x1] = cls * 1000 + k
+        plain = ~np.isin(gt, inst_ids)
+        inst[plain] = gt[plain]
+        pred = gt.copy()
+        flip = rng.rand(*gt.shape) < 0.3
+        pred[flip] = rng.randint(0, 34, int(flip.sum()))
+        pairs.append((pred, gt))
+        inst_pairs.append((pred, inst))
+    res, ms = {}, {}
+    load = native._load
+    for path in (True, False):
+        if not path:        # the library unavailable: numpy's bincount
+            native._load = lambda build_dir=None: None
+        try:
+            t0 = time.perf_counter()
+            res[path] = evaluate_semantic(pairs, inst_pairs)
+            ms[path] = 1e3 * (time.perf_counter() - t0)
+        finally:
+            native._load = load
+    a, b = res[True], res[False]
+    check(np.array_equal(a["confMatrix"], b["confMatrix"])
+          and all(np.allclose(list(a[k].values()), list(b[k].values()),
+                              rtol=0, atol=0, equal_nan=True)
+                  for k in a if isinstance(a[k], dict))
+          and all(a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k]))
+                  for k in a if k.startswith("average")),
+          "evaluate_semantic: the native path differs from numpy")
+    print(f"[semantic] evaluate_semantic on 2 seeded 1024x2048 maps: the "
+          f"native loop equal to numpy; mean IoU "
+          f"{a['averageScoreClasses']:.4f}, iIoU "
+          f"{a['averageScoreInstClasses']:.4f}; host {ms[True]:.1f} ms "
+          f"(native) / {ms[False]:.1f} ms (numpy)")
+    return times
+
+
 def main() -> int:
     import argparse
     import tempfile
@@ -3691,6 +4157,8 @@ def main() -> int:
         conv = phase_convergence(root, card)
         ctdet = phase_ctdet(root)
         tasks = {t: phase_task(t, root) for t in TASK_PHASES}
+        ddd = phase_ddd(root)
+        phase_nms_semantic()
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],
@@ -3739,6 +4207,10 @@ def main() -> int:
     for t, res in tasks.items():
         kernels[1][f"{t}_run_launches"] = res["run"]
         kernels[0][f"{t}_train_step_launches"] = res["step"]["exact"]
+    # phase 23: ddd's launches a 1242x375 frame (rowband:6) and a train
+    # step at 384x1280 (exact)
+    kernels[1]["ddd_run_launches"] = ddd["run"]
+    kernels[0]["ddd_train_step_launches"] = ddd["step"]["exact"]
     for k, mode in zip(kernels, FWD_CLAMPS):
         node, node32 = resdcn_node["fwd"][mode], resdcn_node["fwd_f32"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})
@@ -3763,6 +4235,7 @@ def main() -> int:
     kernels[3]["ctdet_train_step_launches"] = ctdet["step"]["bwd_exact"]
     for t, res in tasks.items():
         kernels[3][f"{t}_train_step_launches"] = res["step"]["bwd_exact"]
+    kernels[3]["ddd_train_step_launches"] = ddd["step"]["bwd_exact"]
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         k.update({"ctdet_node_shapes": ctdet["shapes"],
                   "ctdet_nodes_max_abs_err": ctdet["bwd_err"][mode]})

@@ -326,9 +326,13 @@ def test_detector_flip_test_is_a_no_op(variables):
 
 
 def test_detector_registered():
+    """exdet is registered; a task with no detector is refused (every
+    task of the JAX package has one now, so the config names another)."""
     assert DETECTORS["exdet"] is ExdetDetector
+    cfg = Config(task="exdet", dataset="coco")
+    cfg.task = "no_such_task"
     with pytest.raises(NotImplementedError, match="not ported"):
-        create_detector(Config(task="ddd", dataset="kitti"), device="cpu")
+        create_detector(cfg, device="cpu")
 
 
 # -- one train step ----------------------------------------------------------

@@ -537,18 +537,20 @@ def test_ctdet_run_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("task,dataset", [("exdet", "coco"),
-                                          ("multi_pose", "coco_hp")])
+                                          ("multi_pose", "coco_hp"),
+                                          ("ddd", "kitti")])
 def test_task_heads_and_launches_on_card(cuda, tmp_path, task, dataset):
-    """chip_smoke.py phases 21 and 22 in small: the exdet and multi_pose
-    detectors (DLA-34, head_conv 64, 128x128 input, f32, TF32 off,
+    """chip_smoke.py phases 21, 22 and 23 in small: the exdet, multi_pose
+    and ddd detectors (DLA-34, head_conv 64, 128x128 input, f32, TF32 off,
     rowband:6) on a 160x120 frame: 16 `dcn_fwd` launches a frame (also
-    under flip_test: exdet a batch of 1, multi_pose a doubled batch),
+    under flip_test: exdet and ddd a batch of 1, multi_pose a doubled batch),
     every head on the card within 2e-3 relative max of the CPU's; then
     one train step of `main` at batch 2 (`off`): 16 exact forward and 16
     backward launches."""
     from centerpoly_tpu_torch import main as tmain
     from centerpoly_tpu_torch.data.fixture import (write_box_fixture,
-                                                   write_keypoint_fixture)
+                                                   write_keypoint_fixture,
+                                                   write_kitti3d_fixture)
     cfg = Config(task=task, dataset=dataset, input_h=128, input_w=128,
                  head_conv=64, K=32, mixed_precision=False)
     assert cfg.prefer_fast_inference_dcn()
@@ -587,6 +589,8 @@ def test_task_heads_and_launches_on_card(cuda, tmp_path, task, dataset):
     root = str(tmp_path)
     if task == "exdet":
         write_box_fixture(root, {"train": 2}, 0, 120, 160, categories=(1,))
+    elif task == "ddd":
+        write_kitti3d_fixture(root, {"train": 2}, 0)
     else:
         write_keypoint_fixture(root, {"train": 2}, 0, 120, 160)
     before = dict(dcn.launches)

@@ -199,10 +199,11 @@ def jax_step_f64(arch, heads, head_conv: int, hw, lr: float, loss_kw,
     `arch` built with dtype float64 under jax.enable_x64) from `variables`
     on the host `batch`: (its stats, its gradients, and its parameters
     and BatchNorm statistics after the step), the last two as port
-    state_dicts; `task`'s loss (polydet, ctdet, exdet or multi_pose) with
+    state_dicts; `task`'s loss (polydet, ctdet, exdet, multi_pose or ddd) with
     `loss_kw`.  The DCN mode is CENTERPOLY_PALLAS_DCN's as the step is
     traced."""
     from centerpoly_tpu.losses import CtdetLossConfig, PolydetLossConfig
+    from centerpoly_tpu.losses.ddd import DddLossConfig
     from centerpoly_tpu.losses.exdet import ExdetLossConfig
     from centerpoly_tpu.losses.multi_pose import MultiPoseLossConfig
     from centerpoly_tpu.models import create_model
@@ -222,7 +223,8 @@ def jax_step_f64(arch, heads, head_conv: int, hw, lr: float, loss_kw,
                                                  variables["batch_stats"]))
         loss_cfg = {"polydet": PolydetLossConfig, "ctdet": CtdetLossConfig,
                     "exdet": ExdetLossConfig,
-                    "multi_pose": MultiPoseLossConfig}[task](**loss_kw)
+                    "multi_pose": MultiPoseLossConfig,
+                    "ddd": DddLossConfig}[task](**loss_kw)
         st, stats = make_train_step(
             loss_cfg, loss_callable=loss_fn_for_task(task))(
             st, jax.tree.map(jnp.asarray, batch))
