@@ -122,6 +122,8 @@ class Config:
     nbr_points: int = 16
     cat_spec_poly: bool = False
     cat_spec_wh: bool = False      # ctdet: one wh pair a class
+    dense_poly: bool = False       # polydet: the sampler writes dense_poly
+                                   # in place of poly (no loss reads it)
     reg_offset: bool = True
     mixed_precision: bool = True   # bf16 activations and weights on the card
 

@@ -8,18 +8,24 @@ Per image: random-crop centre/scale jitter, hflip with canonical vertex
 re-ordering, PCA colour aug; targets: class heatmap (elliptical gaussian
 at the polygon centroid), poly offsets (cartesian (dx, dy) or polar
 (r, theta)), pseudo_depth, sub-pixel reg, flat peak ind, reg_mask (zeroed
-for angle-inverted polar objects), wh, peak, freq_mask.
+for angle-inverted polar objects), wh, peak, freq_mask, and the maps no
+polydet loss reads: border_hm (a gaussian at every GT vertex), fg (the
+frame's Cityscapes instance-id image, nearest-resized to the output),
+cat_spec_poly / cat_spec_mask under `cat_spec_poly`, and dense_poly /
+dense_poly_mask in place of poly under `dense_poly`.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict
 
 import numpy as np
 
 from ..geometry.affine import affine_transform_points, get_affine_transform
-from ..geometry.gaussian import (gaussian_radius, splat_ellipse_gaussian,
-                                 splat_gaussian)
+from ..geometry.gaussian import (draw_dense_reg, gaussian_radius,
+                                 splat_ellipse_gaussian, splat_gaussian)
+from ..utils.png import read_png
 from .base_sampler import BaseSampler
 
 
@@ -37,18 +43,44 @@ def flip_vertex_permutation(n2: int) -> np.ndarray:
     return perm
 
 
+def resize_nearest(a: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """cv2.resize(a, (out_w, out_h), interpolation=cv2.INTER_NEAREST):
+    output index i reads input index min(floor(i / (out / in)), in - 1)
+    on each axis, the scale's inverse taken in double as cv2 takes it."""
+    in_h, in_w = a.shape[:2]
+    fy, fx = 1.0 / (out_h / in_h), 1.0 / (out_w / in_w)
+    ys = np.minimum(np.floor(np.arange(out_h) * fy).astype(np.int64),
+                    in_h - 1)
+    xs = np.minimum(np.floor(np.arange(out_w) * fx).astype(np.int64),
+                    in_w - 1)
+    return a[ys[:, None], xs[None, :]]
+
+
 class PolydetSampler(BaseSampler):
     """Polydet GT encoder; augmentation pipeline shared via BaseSampler.
-    It encodes the targets polydet_loss reads (plus wh, peak, freq_mask);
-    the auxiliary maps border_hm and fg, and the cat_spec_poly and
-    dense_poly targets, are not ported."""
+    Every key of the JAX package's sampler, bit for bit."""
 
     fallback_hw = (1024, 2048)  # cityscapes frame
 
+    def _fg_mask(self, img_id: int, output_h: int,
+                 output_w: int) -> np.ndarray:
+        """Binary foreground map from the instance-id image beside the
+        frame (ref sample/polydet.py:70-74,153-154: the file name with
+        leftImg8bit -> gtFine_instanceIds), read by utils/png.py and
+        nearest-resized to the output; zeros where the name has no
+        leftImg8bit or the file is absent.  A PNG the reader refuses
+        raises."""
+        fg = np.zeros((output_h, output_w, 1), np.float32)
+        name = self.coco.load_img(img_id).get("file_name", "")
+        inst_path = name.replace("leftImg8bit", "gtFine_instanceIds")
+        path = os.path.join(self.img_dir or "", inst_path)
+        if inst_path != name and os.path.isfile(path):
+            m = resize_nearest(read_png(path), output_h, output_w)
+            fg[:, :, 0] = (m != 0).astype(np.float32)
+        return fg
+
     def __call__(self, index: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
-        if cfg.cat_spec_poly:
-            raise NotImplementedError("cat_spec_poly targets are not ported")
         img_id = self.images[index]
         anns = self.coco.load_anns(img_id)
         num_objs = min(len(anns), cfg.max_objs)
@@ -67,8 +99,15 @@ class PolydetSampler(BaseSampler):
 
         hm = np.zeros((output_h, output_w, num_classes), np.float32)
         wh = np.zeros((cfg.max_objs, 2), np.float32)
+        border_hm = np.zeros((output_h, output_w, 1), np.float32)
         pseudo_depth = np.zeros((cfg.max_objs, 1), np.float32)
         poly = np.zeros((cfg.max_objs, num_points * 2), np.float32)
+        dense_poly = np.zeros((output_h, output_w, num_points * 2),
+                              np.float32)
+        cat_spec_poly = np.zeros(
+            (cfg.max_objs, num_classes * num_points * 2), np.float32)
+        cat_spec_mask = np.zeros(
+            (cfg.max_objs, num_classes * num_points * 2), np.float32)
         reg = np.zeros((cfg.max_objs, 2), np.float32)
         ind = np.zeros((cfg.max_objs,), np.int32)
         peak = np.zeros((cfg.max_objs, 2), np.float32)
@@ -125,6 +164,10 @@ class PolydetSampler(BaseSampler):
                 splat_gaussian(hm[:, :, cls_id], ct_int, radius)
 
             wh[k] = w, h
+            # border heatmap: a gaussian at every GT vertex (ref :234-236)
+            for vx, vy in v:
+                splat_gaussian(border_hm[:, :, 0],
+                               (int(vx), int(vy)), radius)
             d = v - ct[None, :]
             if cfg.rep == "cartesian":
                 poly[k] = d.reshape(-1)
@@ -136,6 +179,16 @@ class PolydetSampler(BaseSampler):
                                  np.where(y < 0, theta + 2 * np.pi, theta))
                 poly[k, 0::2] = r
                 poly[k, 1::2] = theta
+            if cfg.cat_spec_poly:
+                # per-class polygon channels (ref :245-248, 288-291)
+                base = cls_id * num_points * 2
+                cat_spec_poly[k, base:base + num_points * 2] = poly[k]
+                cat_spec_mask[k, base:base + num_points * 2] = 1
+            if cfg.dense_poly:
+                # splat the vertex vector where this object's gaussian
+                # dominates (ref :401-406)
+                draw_dense_reg(dense_poly, hm.max(axis=2), ct_int,
+                               poly[k], radius)
 
             peak[k] = ct
             ind[k] = ct_int[1] * output_w + ct_int[0]
@@ -163,7 +216,16 @@ class PolydetSampler(BaseSampler):
             "wh": wh,
             "peak": peak,
             "freq_mask": np.float32(freq_mean),
+            "border_hm": border_hm,
+            "fg": self._fg_mask(img_id, output_h, output_w),
         }
+        if cfg.cat_spec_poly:
+            ret["cat_spec_poly"] = cat_spec_poly
+            ret["cat_spec_mask"] = cat_spec_mask
+        if cfg.dense_poly:
+            ret["dense_poly"] = dense_poly
+            ret["dense_poly_mask"] = (dense_poly != 0).astype(np.float32)
+            del ret["poly"]
         if cfg.reg_offset:
             ret["reg"] = reg
         if self.split != "train":

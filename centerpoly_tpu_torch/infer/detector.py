@@ -403,15 +403,22 @@ class BaseDetector:
             dbg.add_blend_img(img, dbg.gen_colormap(hm.cpu().numpy()),
                               "pred_hm")
         dbg.add_img(image.astype(np.uint8), img_id="detections")
+        # a row's score and box: ddd's rows are [alpha, bbox 4, dim 3,
+        # location 3, rotation_y, score]; the others start [bbox 4, score]
         for j, rows in results.items():
             for row in np.asarray(rows):
-                if row[4] > cfg.vis_thresh:
-                    if cfg.task == "polydet":
-                        dbg.add_polydet(row[5:-1], int(j) - 1, row[4],
-                                        img_id="detections")
-                    else:
-                        dbg.add_coco_bbox(row[:4], int(j) - 1, row[4],
-                                          img_id="detections")
+                score = row[-1] if cfg.task == "ddd" else row[4]
+                if score <= cfg.vis_thresh:
+                    continue
+                if cfg.task == "polydet":
+                    dbg.add_polydet(row[5:-1], int(j) - 1, score,
+                                    img_id="detections")
+                    continue
+                box = row[1:5] if cfg.task == "ddd" else row[:4]
+                dbg.add_coco_bbox(box, int(j) - 1, score,
+                                  img_id="detections")
+                if cfg.task == "multi_pose":
+                    dbg.add_coco_hp(row[5:39], img_id="detections")
         if cfg.debug >= 4:
             dbg.save_all_imgs(cfg.debug_dir)
         self.debugger = dbg
@@ -512,8 +519,8 @@ def create_detector(cfg: Config, variables: Mapping | None = None,
     gives the first n cards)."""
     cls = DETECTORS.get(cfg.task)
     if cls is None:
-        raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (ROADMAP.md queue A, secondary surface)")
+        raise ValueError(f"unknown task {cfg.task!r}: the detectors are "
+                         f"{', '.join(sorted(DETECTORS))}")
     return cls(cfg, variables=variables, device=device, devices=devices)
 
 

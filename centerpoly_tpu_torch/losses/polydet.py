@@ -33,6 +33,23 @@ class PolydetLossConfig:
     mse_loss: bool = False
 
 
+def _check_poly_target(pred: torch.Tensor, batch) -> None:
+    """The polygon term reads `poly` (B, K, 2N) against a head of 2N
+    channels.  Under --dense_poly the sampler drops `poly` for
+    `dense_poly`, and under --cat_spec_poly the head has num_classes x 2N
+    channels; no polydet loss reads those targets (the JAX package's loss
+    fails at this point on both), so training stops here."""
+    if "poly" not in batch:
+        raise ValueError(
+            "--dense_poly: the batch carries dense_poly in place of poly, "
+            "and no polydet loss reads dense_poly")
+    if pred.shape[-1] != batch["poly"].shape[-1]:
+        raise ValueError(
+            f"--cat_spec_poly: the poly head has {pred.shape[-1]} channels "
+            f"(one polygon a class) against a {batch['poly'].shape[-1]}-"
+            f"channel poly target, and no polydet loss reads cat_spec_poly")
+
+
 def polydet_loss(outputs: List[Dict[str, torch.Tensor]],
                  batch: Dict[str, torch.Tensor], cfg: PolydetLossConfig,
                  group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -56,6 +73,7 @@ def polydet_loss(outputs: List[Dict[str, torch.Tensor]],
         depth_l += reg_l1_loss(out["pseudo_depth"], batch["reg_mask"],
                                batch["ind"], batch["pseudo_depth"],
                                group) / num_stacks
+        _check_poly_target(out["poly"], batch)
         p = poly_loss(out["poly"], batch["reg_mask"], batch["ind"],
                       batch["poly"], rep=cfg.rep, kind=cfg.poly_loss,
                       with_order=cfg.poly_order, group=group)

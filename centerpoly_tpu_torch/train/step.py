@@ -26,8 +26,8 @@ def loss_fn_for_task(task: str) -> Callable:
               "ddd": ddd_loss}
     if task in losses:
         return losses[task]
-    raise NotImplementedError(f"no train loss for task '{task}' in the port "
-                              f"yet (ROADMAP.md queue A, secondary surface)")
+    raise ValueError(f"unknown task {task!r}: the train losses are "
+                     f"{', '.join(sorted(losses))}")
 
 
 def to_device(batch: Mapping, device, dtype=torch.float32

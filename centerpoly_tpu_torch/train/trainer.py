@@ -82,8 +82,7 @@ def loss_config_for(cfg: Config):
             reg_loss=cfg.reg_loss, dense_hp=cfg.dense_hp,
             hm_hp=cfg.hm_hp, reg_hp_offset=cfg.reg_hp_offset,
             reg_offset=cfg.reg_offset)
-    raise NotImplementedError(f"no loss config for task '{cfg.task}' in the "
-                              f"port yet")
+    raise ValueError(f"unknown task {cfg.task!r}: no loss config")
 
 
 class Trainer:

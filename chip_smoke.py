@@ -18,8 +18,10 @@ nodes a forward run the same kernels (resdcn_101's first at Cin 2048),
 with res_18, res_101 and dlav0_34 (no DCNv2 node) beside them.  Last,
 the ctdet task (box detection, COCO's 80 classes at 512x512) on DLA-34:
 `create_detector`, `main`, `test.py` and its three evaluators; the exdet,
-multi_pose and ddd (3D boxes on KITTI) tasks the same way; and the
-on-device NMS and the pixel-level semantic evaluator.  Phases
+multi_pose and ddd (3D boxes on KITTI) tasks the same way; the
+on-device NMS and the pixel-level semantic evaluator; and the remaining
+modules: the experimental losses' device half, the sampler's auxiliary
+targets and the host tools.  Phases
 (any failure exits non-zero, with no result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
@@ -208,7 +210,22 @@ on-device NMS and the pixel-level semantic evaluator.  Phases
  24. `soft_nms_batch` and `hard_nms_batch` on the card at K 128 against
      the host `soft_nms`, a greedy reference and the CPU, with their
      device ms; `evaluate_semantic` over two 1024x2048 label maps, the
-     native confusion loop built here against its numpy path.
+     native confusion loop built here against its numpy path;
+ 25. the remaining modules (`phase_remaining`): (a) the experimental
+     losses' device half, `disk_loss_device` and `area_poly_loss_device`
+     in each rep at B 4, K 128 (32 valid), 128x256, N 16: f32 forward +
+     backward ms and peak memory on the card, and in f64 the card against
+     the port on the CPU (loss within 1e-4 relative, the gradient of pred
+     within 1e-4 of its largest); (b) the polydet sampler at 512x1024
+     over phase 9's fixture (default, --cat_spec_poly, --dense_poly: host
+     ms a batch of 4), the extra host ms of reading fg from a 16-bit
+     gtFine_instanceIds PNG beside phase 13's PNG frames (filter None
+     and Paeth), and one DLA-34 `off` train step on such a batch with its
+     launches counted (16 + 16); (c) the host tools: polygon GT jsons
+     from phase 13's 16-bit val GT, `gt_polygons.main`, `csv_to_coco`,
+     `coco_poly_to_polar`, `polygon_coverage`, `simplify_masks` and
+     `visualize_results`, host seconds of each.  PIL, cv2 and matplotlib
+     are made unimportable for the whole phase.
 
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}.
@@ -4102,6 +4119,346 @@ def phase_nms_semantic():
           f"(native) / {ms[False]:.1f} ms (numpy)")
     return times
 
+# ---- phase 25: the remaining modules -----------------------------------------
+
+# the experimental losses' device half at a training batch's width: B 4, K
+# 128 object slots of which 32 valid, the 128x256 output map, 16 vertices
+EXP_SHAPE = {"B": 4, "K": 128, "valid": 32, "H": 128, "W": 256, "N": 16}
+EXP_REPS = ("cartesian", "polar", "polar_fixed")
+
+
+def exp_inputs(rep, rng):
+    """Seeded inputs of both device losses in `rep`: disk rows (B, K,
+    2N+1) with their GT rows, polygon rows (B, K, 2N) with their centres
+    and a GT mask of filled rectangles, and the object mask."""
+    from centerpoly_tpu_torch.geometry import pil_fill
+    b, k, n = EXP_SHAPE["B"], EXP_SHAPE["K"], EXP_SHAPE["N"]
+    h, w = EXP_SHAPE["H"], EXP_SHAPE["W"]
+
+    def rows(kind):
+        if kind == "cartesian":
+            return rng.uniform(-20, 20, (b, k, 2 * n))
+        r = np.zeros((b, k, 2 * n))
+        r[..., 0::2] = rng.uniform(4, 24, (b, k, n))
+        r[..., 1::2] = np.sort(rng.uniform(0, 2 * np.pi, (b, k, n)), -1)
+        return r
+
+    radius = rng.uniform(-6, 6, (b, k, 1))
+    disk_pred = np.concatenate([rows("cartesian"), radius], -1)
+    disk_gt = np.concatenate([rows(rep), radius], -1)
+    poly = rows(rep)
+    centers = rng.uniform([24, 24], [w - 24, h - 24], (b, k, 2))
+    target = np.zeros((b, h, w), np.uint8)
+    for i in range(b):
+        for _ in range(EXP_SHAPE["valid"]):
+            x0, y0 = rng.uniform([0, 0], [w - 30, h - 30])
+            pil_fill.polygon(target[i], [(x0, y0), (x0 + 30, y0),
+                                         (x0 + 30, y0 + 20), (x0, y0 + 20)],
+                             fill=1)
+    mask = np.zeros((b, k), np.float32)
+    mask[:, :EXP_SHAPE["valid"]] = 1
+    f32 = np.float32
+    return {"disk_pred": disk_pred.astype(f32), "disk_gt": disk_gt.astype(f32),
+            "poly": poly.astype(f32), "centers": centers.astype(f32),
+            "target": target.astype(f32), "mask": mask}
+
+
+def exp_loss(name, rep, t, pred):
+    """`name` on the device of `t` (exp_inputs' arrays as tensors)."""
+    from centerpoly_tpu_torch.losses import experimental as ex
+    if name == "disk_loss_device":
+        return ex.disk_loss_device(pred, t["mask"], t["disk_gt"],
+                                   EXP_SHAPE["H"], EXP_SHAPE["W"], rep)
+    return ex.area_poly_loss_device(pred, t["mask"], t["target"],
+                                    t["centers"], rep)
+
+
+def phase_exp_losses(card):
+    """Phase 25 (a): `disk_loss_device` and `area_poly_loss_device` in each
+    rep at EXP_SHAPE.  In f32 on the card: forward + backward ms (CUDA
+    events, 3 calls after 1) and peak memory.  In f64 on the card against
+    the port on the CPU: the loss within 1e-4 relative, the gradient of
+    pred within 1e-4 of its largest.  The check is in f64 because the
+    loss is a min over edges: where two edges lie at nearly the same
+    distance from a pixel, an f32 rounding (the card's and the CPU's
+    sqrt and sigmoid round differently) sends that pixel's gradient to
+    other vertices, a jump of ~1e-3 of the largest gradient (measured
+    against f64 on the CPU at B 1, K 32)."""
+    import torch
+    rng = np.random.RandomState(SEED + 25)
+    out = {}
+    for rep in EXP_REPS:
+        x = exp_inputs(rep, rng)
+        t_card = {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+        for name, key in (("disk_loss_device", "disk_pred"),
+                          ("area_poly_loss_device", "poly")):
+            p = t_card[key].clone().requires_grad_(True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            exp_loss(name, rep, t_card, p).backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+            def step():
+                p.grad = None
+                exp_loss(name, rep, t_card, p).backward()
+            ms = cuda_ms(step, 1, 3)
+            del p
+            res = {}
+            for dev in ("cuda", "cpu"):
+                t = {k: torch.from_numpy(v).double().to(dev)
+                     for k, v in x.items()}
+                q = t[key].clone().requires_grad_(True)
+                t0 = time.perf_counter()
+                loss = exp_loss(name, rep, t, q)
+                loss.backward()
+                res[dev] = (float(loss.detach()), q.grad.cpu().numpy(),
+                            time.perf_counter() - t0)
+                del t, q, loss
+            (lv, g, _), (lcv, gc, cpu_s) = res["cuda"], res["cpu"]
+            d_loss = abs(lv - lcv) / max(abs(lcv), 1e-12)
+            d_grad = float(np.abs(g - gc).max() / max(np.abs(gc).max(),
+                                                      1e-300))
+            print(f"[exp-loss] {name} {rep} at B {EXP_SHAPE['B']} K "
+                  f"{EXP_SHAPE['K']} ({EXP_SHAPE['valid']} valid) "
+                  f"{EXP_SHAPE['H']}x{EXP_SHAPE['W']} N {EXP_SHAPE['N']}: "
+                  f"f32 forward + backward {ms:.3f} ms, peak {peak:.2f} GiB "
+                  f"({card}); f64 loss {lv:.9f} (CPU {lcv:.9f}, relative "
+                  f"{d_loss:.2e}), gradient within {d_grad:.2e} of its "
+                  f"largest (CPU {cpu_s:.1f} s)")
+            check(np.isfinite(lv) and d_loss <= 1e-4 and d_grad <= 1e-4
+                  and np.abs(gc).max() > 0,
+                  f"{name} {rep}: card vs CPU loss {d_loss:.2e}, gradient "
+                  f"{d_grad:.2e}")
+            out[f"{name}[{rep}]"] = {"ms": ms, "peak_gib": peak}
+        del t_card
+    return out
+
+
+def aux_sampler(root, split, **kw):
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.data import (CityscapesMeta,
+                                           CocoPolyAnnotations,
+                                           PolydetSampler)
+    cfg = Config(task="polydet", dataset="cityscapes", arch="dla_34",
+                 input_h=512, input_w=1024, rep="polar", **kw)
+    meta = CityscapesMeta(root)
+    return PolydetSampler(cfg, meta, CocoPolyAnnotations(
+        meta.annot_path(split)), split=split, img_dir=meta.img_dir(split))
+
+
+def inst_beside(eroot, split):
+    """(frame's instance-id path beside it, its gtFine path) for each
+    frame of the eval fixture's `split`."""
+    from centerpoly_tpu_torch.data import CityscapesMeta
+    meta = CityscapesMeta(eroot)
+    with open(meta.annot_path(split)) as f:
+        names = [im["file_name"] for im in json.load(f)["images"]]
+    out = []
+    for name in names:
+        inst = name.replace("leftImg8bit", "gtFine_instanceIds")
+        out.append((os.path.join(meta.img_dir(split), inst),
+                    os.path.join(eroot, "gtFine", split, inst)))
+    return out
+
+
+def phase_aux_targets(root, eroot, card):
+    """Phase 25 (b): the sampler at the training width (512x1024, polar)
+    over phase 9's .npy fixture, default / --cat_spec_poly / --dense_poly,
+    host ms a batch of 4 (num_workers 0); over phase 13's Cityscapes-named
+    PNG frames with no instance-id PNG beside them, then with the 16-bit
+    gtFine PNG beside each (as written, filter None; then re-encoded with
+    Paeth, as real gtFine files may be): the extra host ms of reading fg;
+    then one DLA-34 `off` train step on such a batch (border_hm and fg
+    aboard) with its launches counted: 16 + 16."""
+    import shutil
+    import torch
+    from centerpoly_tpu_torch import main as tmain
+    from centerpoly_tpu_torch.data import Loader
+    from centerpoly_tpu_torch.utils.png import encode_png, read_png
+
+    host = {}
+    for flag, kw in (("default", {}), ("cat_spec_poly",
+                                       {"cat_spec_poly": True}),
+                     ("dense_poly", {"dense_poly": True})):
+        sampler = aux_sampler(root, "train", **kw)
+        sample = sampler(0)
+        want = {"border_hm", "fg"} | ({"cat_spec_poly", "cat_spec_mask"}
+                                      if flag == "cat_spec_poly" else set())
+        if flag == "dense_poly":
+            want |= {"dense_poly", "dense_poly_mask"}
+        check(want <= set(sample) and ("poly" in sample)
+              == (flag != "dense_poly") and sample["border_hm"].any()
+              and not sample["fg"].any(), f"sampler keys under {flag}")
+        host[flag] = loader_ms(Loader(sampler, len(sampler), TRAIN_BATCH,
+                                      shuffle=False))
+    print(f"[aux-targets] sampler at 512x1024 on the "
+          f"{FRAME_HW[1]}x{FRAME_HW[0]} .npy fixture, host ms a batch of "
+          f"{TRAIN_BATCH}: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in host.items()))
+    pairs = inst_beside(eroot, "train")
+    fg_ms = {}
+    for kind in ("absent", "none", "paeth"):
+        for beside, gt in pairs:
+            if kind == "none":
+                shutil.copy(gt, beside)
+            elif kind == "paeth":
+                with open(beside, "wb") as f:
+                    f.write(encode_png(read_png(gt), filter=4))
+        sampler = aux_sampler(eroot, "train")
+        check(sampler(0)["fg"].any() == (kind != "absent"),
+              f"fg with the instance-id PNG {kind}")
+        fg_ms[kind] = loader_ms(Loader(sampler, len(sampler), TRAIN_BATCH,
+                                       shuffle=False))
+    decode = {}
+    for kind, filt in (("none", 0), ("paeth", 4)):
+        buf = encode_png(read_png(pairs[0][1]), filter=filt)
+        path = os.path.join(eroot, f"inst_{kind}.png")
+        with open(path, "wb") as f:
+            f.write(buf)
+        t0 = time.perf_counter()
+        read_png(path)
+        decode[kind] = 1e3 * (time.perf_counter() - t0)
+    print(f"[aux-targets] fg from a 16-bit {FRAME_HW[1]}x{FRAME_HW[0]} "
+          f"gtFine_instanceIds PNG beside each of {len(pairs)} PNG frames: "
+          f"host ms a batch of "
+          f"{TRAIN_BATCH} {fg_ms['absent']:.1f} (absent) / "
+          f"{fg_ms['none']:.1f} (filter None) / {fg_ms['paeth']:.1f} "
+          f"(Paeth): +{(fg_ms['none'] - fg_ms['absent']) / TRAIN_BATCH:.1f} "
+          f"/ +{(fg_ms['paeth'] - fg_ms['absent']) / TRAIN_BATCH:.1f} ms a "
+          f"frame; one decode {decode['none']:.1f} / {decode['paeth']:.1f} "
+          f"ms")
+    tr = tmain.main(train_argv(eroot, "off", val_intervals=0)
+                    + ["--exp_id", "aux_targets"], device="cuda")
+    batch = next(iter(tr.train_loader))
+    check(float(batch["fg"].sum()) > 0 and batch["border_hm"].any(),
+          "the train batch carries no fg / border_hm")
+    step = step_launches(tr, 16)
+    print(f"[aux-targets] one DLA-34 off train step (batch {TRAIN_BATCH}, "
+          f"512x1024, f32) on a batch with border_hm and fg: launches "
+          f"{step} ({card})")
+    del tr
+    torch.cuda.empty_cache()
+    return {"step": step, "host": host, "fg_ms": fg_ms, "decode": decode}
+
+
+def phase_host_tools(eroot, card):
+    """Phase 25 (c): the host tools on this machine's CPU: polygon GT
+    jsons made from phase 13's 16-bit val GT PNGs (one outer contour an
+    instance, tools/contours.py), then
+    `gt_polygons.main` (regular_interval, 16 points) over them,
+    `csv_to_coco` on its CSV, `coco_poly_to_polar`, `polygon_coverage`,
+    `simplify_masks` over one 8-bit mask an instance, and
+    `visualize_results` on test.py's eval_batch 1 results; host seconds
+    of each."""
+    import glob
+    from centerpoly_tpu_torch import tools
+    from centerpoly_tpu_torch.tools import contours, gt_polygons
+    from centerpoly_tpu_torch.utils.png import read_png, write_png
+
+    secs = {}
+    t0 = time.perf_counter()
+    mask_dir = os.path.join(eroot, "inst_masks")
+    os.makedirs(mask_dir, exist_ok=True)
+    n_inst = 0
+    for _, gt in inst_beside(eroot, "val"):
+        ids = read_png(gt)
+        objects = []
+        for v in np.unique(ids[ids >= 1000]):
+            m = (ids == v).astype(np.uint8) * 255
+            cnt = max(contours.find_external_contours(m), key=len)
+            objects.append({"label": "car",
+                            "polygon": cnt.reshape(-1, 2).tolist()})
+            write_png(os.path.join(mask_dir, f"{os.path.basename(gt)[:-4]}"
+                                   f"_{int(v)}.png"), m)
+            n_inst += 1
+        with open(gt.replace("_instanceIds.png", "_polygons.json"), "w") as f:
+            json.dump({"imgHeight": int(ids.shape[0]),
+                       "imgWidth": int(ids.shape[1]), "objects": objects}, f)
+    secs["polygon jsons"] = time.perf_counter() - t0
+    csv_path = os.path.join(eroot, "gt_val.csv")
+    t0 = time.perf_counter()
+    gt_polygons.main(["--data_dir", eroot, "--split", "val", "--out",
+                      csv_path])
+    secs["generate_annotations"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coco = tools.csv_to_coco(csv_path, os.path.join(eroot, "gt_val.json"))
+    secs["csv_to_coco"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tools.coco_poly_to_polar(os.path.join(eroot, "gt_val.json"),
+                             os.path.join(eroot, "gt_val_polar.json"))
+    secs["coco_poly_to_polar"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cover = tools.polygon_coverage(os.path.join(eroot, "gt_val.json"))
+    secs["polygon_coverage"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tools.simplify_masks(mask_dir, os.path.join(eroot, "inst_simple"))
+    secs["simplify_masks"] = time.perf_counter() - t0
+    ious = []
+    for name in sorted(os.listdir(mask_dir)):
+        a = read_png(os.path.join(mask_dir, name)) > 0
+        b = read_png(os.path.join(eroot, "inst_simple", name)) > 0
+        ious.append((a & b).sum() / max((a | b).sum(), 1))
+    results = glob.glob(os.path.join(eroot, "exp", "cityscapes", "polydet",
+                                     "test_b1", "results.json"))
+    check(len(results) == 1, "phase 13's test.py results.json is missing")
+    from centerpoly_tpu_torch.data import CocoPolyAnnotations, CityscapesMeta
+    meta = CityscapesMeta(eroot)
+    ann = CocoPolyAnnotations(meta.annot_path("val"))
+    t0 = time.perf_counter()
+    written = tools.visualize_results(
+        results[0], meta.img_dir("val"), os.path.join(eroot, "vis"),
+        id_to_file={i: ann.load_img(i)["file_name"]
+                    for i in ann.get_img_ids()})
+    secs["visualize_results"] = time.perf_counter() - t0
+    print(f"[host-tools] {n_inst} GT instances of {EVAL_FRAMES} "
+          f"{FRAME_HW[1]}x{FRAME_HW[0]} val frames -> "
+          f"{len(coco['annotations'])} 16-point annotations, "
+          f"coverage mean IoU {cover['mean_iou']:.4f} over {cover['n']}, "
+          f"simplified masks' IoU with theirs >= {min(ious):.4f}, "
+          f"{len(written)} overlays; host s: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in secs.items()))
+    check(len(coco["annotations"]) == n_inst > 0 and cover["n"] == n_inst
+          and cover["mean_iou"] > 0.5 and min(ious) > 0.9
+          and len(written) > 0, "the host tools on the eval fixture")
+    return secs
+
+
+NO_HOST_LIBS = ("PIL", "cv2", "matplotlib")
+
+
+def phase_remaining(root, card):
+    """Phase 25: see the module doc; PIL, cv2 and matplotlib unimportable
+    throughout (some card machines have the first two).  Returns the
+    fields of the kernels line."""
+    t0 = time.perf_counter()
+    eroot = os.path.join(root, "eval")
+    saved = {m: sys.modules.get(m) for m in NO_HOST_LIBS}
+    sys.modules.update(dict.fromkeys(NO_HOST_LIBS))
+    try:
+        losses = phase_exp_losses(card)
+        aux = phase_aux_targets(root, eroot, card)
+        tools_s = phase_host_tools(eroot, card)
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+    print(f"[remaining] phase 25 in {time.perf_counter() - t0:.1f} s, "
+          f"{', '.join(NO_HOST_LIBS)} unimportable")
+    return {"losses": losses, "aux": aux, "tools": tools_s}
+
+
+def stop_helper_processes():
+    """Stop multiprocessing's forkserver (test.py's matcher pool starts
+    it) and resource tracker, which would otherwise outlive the script
+    for a moment."""
+    from multiprocessing import forkserver, resource_tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
 
 def main() -> int:
     import argparse
@@ -4159,6 +4516,7 @@ def main() -> int:
         tasks = {t: phase_task(t, root) for t in TASK_PHASES}
         ddd = phase_ddd(root)
         phase_nms_semantic()
+        remaining = phase_remaining(root, card)
     kernels = [{"name": f"dcn_fwd[{mode}]", "route": "cuda",
                 "source": SOURCES["dcn_fwd"],
                 "replaces": REPLACES[f"dcn_fwd[{mode}]"],
@@ -4236,12 +4594,18 @@ def main() -> int:
     for t, res in tasks.items():
         kernels[3][f"{t}_train_step_launches"] = res["step"]["bwd_exact"]
     kernels[3]["ddd_train_step_launches"] = ddd["step"]["bwd_exact"]
+    # phase 25: a DLA-34 train step on a batch carrying border_hm and fg
+    kernels[0]["aux_targets_train_step_launches"] = (
+        remaining["aux"]["step"]["exact"])
+    kernels[3]["aux_targets_train_step_launches"] = (
+        remaining["aux"]["step"]["bwd_exact"])
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         k.update({"ctdet_node_shapes": ctdet["shapes"],
                   "ctdet_nodes_max_abs_err": ctdet["bwd_err"][mode]})
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         node = resdcn_node["bwd"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})
+    stop_helper_processes()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -20,7 +20,8 @@ the JAX package's (CPU).
   batch of 1, the plain results), reg_bbox off, and the test scale 0.5,
   at which JAX's rows move and the port's equal its scale-1 rows; rows
   held as sets, score within 1e-4, every other column within 1e-3
-  relative (+1e-3);
+  relative (+1e-3); the --debug view cuts a row on its score (the last
+  column) and draws its box (columns 1-4);
 * one DLA-34 ddd train step in f64 against `jax_step_f64`, with the
   bounds of tests/test_torch_train.py;
 * `main ddd` and `test.py` on the fixture: the KITTI files the port's
@@ -563,6 +564,42 @@ def test_flip_test_is_a_no_op(variables):
     ref = plain.run(_frame())["results"]
     for j in ref:
         np.testing.assert_array_equal(got[j], ref[j])
+
+
+def test_debug_view_cuts_on_the_score_and_draws_the_box(variables,
+                                                        monkeypatch):
+    """Under --debug a ddd row [alpha, bbox 4, dim 3, location 3,
+    rotation_y, score] is kept where its score (the last column) is above
+    vis_thresh, and drawn as its box, columns 1-4: the box's corners take
+    the class colour on the frame."""
+    from centerpoly_tpu_torch.utils.debugger import Debugger
+    drawn = []
+    add = Debugger.add_coco_bbox
+
+    def record(self, bbox, cat, conf=1.0, show_txt=True, img_id="default"):
+        drawn.append((np.asarray(bbox, np.float64), int(cat), float(conf)))
+        return add(self, bbox, cat, conf, show_txt=False, img_id=img_id)
+
+    monkeypatch.setattr(Debugger, "add_coco_bbox", record)
+    frame = _frame()
+    rows = create_detector(Config(**DKW), variables,
+                           device="cpu").run(frame)["results"]
+    scores = np.sort([r[-1] for j in rows for r in rows[j]])
+    thresh = float(scores[len(scores) // 2])    # half the rows are cut
+    det = create_detector(Config(**DKW, debug=1, vis_thresh=thresh),
+                          variables, device="cpu")
+    assert det.run(frame)["results"].keys() == rows.keys()
+    want = sorted((tuple(r[1:5]), j - 1, float(r[-1]))
+                  for j in rows for r in rows[j] if r[-1] > thresh)
+    got = sorted((tuple(b.astype(np.float32)), c, s) for b, c, s in drawn)
+    assert 0 < len(want) < len(scores) and got == want
+    img = det.debugger.imgs["detections"]
+    for (x0, y0, x1, y1), cat, _ in want:
+        color = det.debugger.colors[cat % len(det.debugger.colors)]
+        for x, y in ((x0, y0), (x1, y1)):
+            x, y = int(x), int(y)
+            if 0 <= x < FRAME_HW[1] and 0 <= y < FRAME_HW[0]:
+                assert (img[y, x] == color).all(), (x, y)
 
 
 def test_scale_half_keeps_the_rows_where_jax_moves_them(jax_env, variables):

@@ -331,7 +331,7 @@ def test_detector_registered():
     assert DETECTORS["exdet"] is ExdetDetector
     cfg = Config(task="exdet", dataset="coco")
     cfg.task = "no_such_task"
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown task 'no_such_task'"):
         create_detector(cfg, device="cpu")
 
 

@@ -845,3 +845,43 @@ def test_run_batch_over_two_replicas_on_one_card(cuda):
             assert any(cj == j and abs(c[4] - row[4]) <= 1e-3
                        and np.abs(np.delete(c - row, [4, len(row) - 1])
                                   ).max() <= 1.0 for cj, c in cand), row
+
+
+@pytest.mark.parametrize("rep", ["cartesian", "polar", "polar_fixed"])
+def test_experimental_device_losses_on_card(cuda, rep):
+    """`disk_loss_device` and `area_poly_loss_device` at 64x96 on the card
+    against the port on the CPU: losses within 1e-5 relative, the
+    gradients of pred within 1e-5 of their largest (the same elementwise
+    ops, summed in another order)."""
+    from centerpoly_tpu_torch.losses import experimental as ex
+    g = torch.Generator().manual_seed(3)
+    b, k, n, h, w = 2, 6, 8, 64, 96
+    if rep == "cartesian":
+        rows = torch.rand(b, k, 2 * n, generator=g) * 40 - 20
+    else:
+        rows = torch.zeros(b, k, 2 * n)
+        rows[..., 0::2] = torch.rand(b, k, n, generator=g) * 18 + 4
+        rows[..., 1::2] = torch.sort(torch.rand(b, k, n, generator=g)
+                                     * 6.28, -1)[0]
+    radius = torch.rand(b, k, 1, generator=g) * 8 - 4
+    pred = torch.cat([torch.rand(b, k, 2 * n, generator=g) * 40 - 20,
+                      radius], -1)
+    target = torch.cat([rows, radius], -1)
+    mask = (torch.rand(b, k, generator=g) > 0.3).float()
+    centers = torch.rand(b, k, 2, generator=g) * 50 + 20
+    gt_mask = (torch.rand(b, h, w, generator=g) > 0.6).float()
+
+    def run(dev):
+        p = pred.to(dev).requires_grad_(True)
+        q = rows.to(dev).requires_grad_(True)
+        d = ex.disk_loss_device(p, mask.to(dev), target.to(dev), h, w, rep)
+        a = ex.area_poly_loss_device(q, mask.to(dev), gt_mask.to(dev),
+                                     centers.to(dev), rep)
+        (d + a).backward()
+        return d.item(), a.item(), p.grad.cpu(), q.grad.cpu()
+
+    got, ref = run(cuda), run("cpu")
+    for x, y in zip(got[:2], ref[:2]):
+        assert abs(x - y) <= 1e-5 * abs(y)
+    for x, y in zip(got[2:], ref[2:]):
+        assert _rel(x, y) <= 1e-5 and y.abs().max() > 0
