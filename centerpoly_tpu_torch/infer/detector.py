@@ -33,7 +33,7 @@ from ..geometry.affine import get_affine_transform, warp_axis_aligned
 from ..models import create_model
 from ..ops.decode import ctdet_decode, polydet_decode
 from ..ops.nms import soft_nms
-from ..utils.timers import StageTimer
+from ..utils.timers import StageTimer, span
 from ..weights import load_reference_checkpoint, load_weights, \
     state_dict_from_jax
 
@@ -242,34 +242,35 @@ class BaseDetector:
     @torch.no_grad()
     def run(self, image: np.ndarray) -> Dict:
         """Full pipeline on one HWC uint8 image.  Returns results + the
-        reference's 7-stage timing dict."""
-        timer = StageTimer().start()
-        image = np.asarray(image)
-        frame = torch.from_numpy(image).to(self.device)[None]
-        timer.stage("load", fence=frame)
-
-        detections = []
-        for scale in self.scales:
-            trans, meta = self._scaled_trans(*image.shape[:2], scale)
-            images = self._pre_device(frame, trans,
-                                      (meta["inp_h"], meta["inp_w"]))
-            timer.stage("pre", fence=images)
-            heads = self._heads(images)
-            dets = self._decode(heads)
-            timer.stage("net", fence=dets)
-            dets_host = dets.cpu().numpy()
-            timer.stage("dec")
-            detections.append(self._post(dets_host, meta, scale))
-            timer.stage("post")
-
-        results = self.merge_outputs(detections)
-        timer.stage("merge")
-        if self.cfg.debug > 0:
-            self._debug_views(image, images, heads, results)
-        times = timer.times
-        return {"results": results, "tot": sum(times.values()),
+        reference's 7-stage timing dict: `pre` and `net` are the card's
+        time between events at their boundaries (StageTimer), the others
+        the host's; `tot` is the call's wall time."""
+        timer = StageTimer(self.device)
+        with span("run"):
+            with timer.stage("load"):
+                image = np.asarray(image)
+                frame = torch.from_numpy(image).to(self.device)[None]
+            detections = []
+            for scale in self.scales:
+                with timer.stage("pre", device=True):
+                    trans, meta = self._scaled_trans(*image.shape[:2], scale)
+                    images = self._pre_device(frame, trans,
+                                              (meta["inp_h"], meta["inp_w"]))
+                with timer.stage("net", device=True):
+                    heads = self._heads(images)
+                    dets = self._decode(heads)
+                with timer.stage("dec"):
+                    dets_host = dets.cpu().numpy()
+                with timer.stage("post"):
+                    detections.append(self._post(dets_host, meta, scale))
+            with timer.stage("merge"):
+                results = self.merge_outputs(detections)
+            if self.cfg.debug > 0:
+                self._debug_views(image, images, heads, results)
+        times = timer.read()
+        return {"results": results,
                 **{k: times.get(k, 0.0) for k in
-                   ("load", "pre", "net", "dec", "post", "merge")}}
+                   ("tot", "load", "pre", "net", "dec", "post", "merge")}}
 
     def _upload(self, array: np.ndarray, device=None) -> torch.Tensor:
         """Host array -> `device` (the detector's by default) without
@@ -319,25 +320,31 @@ class BaseDetector:
         post-processing of frame i-1; a frame is waited for only on its
         own event (the JAX package's run_stream, infer/detector.py:240-271,
         where jax dispatch is asynchronous).  Debug views are not rendered
-        in stream mode."""
+        in stream mode.  Each stage's span carries the frame's sequence
+        number, as frames overlap."""
         inflight: collections.deque = collections.deque()
 
-        def finish(entry):
+        def finish(seq, entry):
             detections = []
             for host, done, meta, scale in entry:
                 if done is not None:
-                    done.synchronize()      # the only blocking point
-                detections.append(self._post(host.numpy(), meta, scale))
-            return self.merge_outputs(detections)
+                    with span("stream.wait", seq):
+                        done.synchronize()      # the only blocking point
+                with span("stream.post", seq):
+                    detections.append(self._post(host.numpy(), meta, scale))
+            with span("stream.merge", seq):
+                return self.merge_outputs(detections)
 
-        for image in frames:
+        for seq, image in enumerate(frames):
             if len(inflight) >= max(1, depth):
-                yield finish(inflight.popleft())
-            frame = self._upload(np.asarray(image))[None]
-            inflight.append([(*self._dispatch(frame, s), s)
-                             for s in self.scales])
+                yield finish(*inflight.popleft())
+            with span("stream.upload", seq):
+                frame = self._upload(np.asarray(image))[None]
+            with span("stream.dispatch", seq):
+                inflight.append((seq, [(*self._dispatch(frame, s), s)
+                                       for s in self.scales]))
         while inflight:
-            yield finish(inflight.popleft())
+            yield finish(*inflight.popleft())
 
     @torch.no_grad()
     def run_batch(self, images) -> list:
@@ -350,34 +357,57 @@ class BaseDetector:
         package's run_batch over a mesh) and split in order; each slice
         runs on its replica's device and stream, all launched from this
         thread before any is waited for, and only the real frames'
-        results come back."""
-        frames = np.stack([np.asarray(im) for im in images])
-        h, w = frames.shape[1:3]
-        n = len(self.replicas)
-        pad = (-len(frames)) % n
-        if pad:
-            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
-        scaled = [(self._scaled_trans(h, w, s), s) for s in self.scales]
-        launched = []
-        for rep, chunk in zip(self.replicas, np.split(frames, n)):
-            with (torch.cuda.stream(rep.stream) if rep.stream is not None
-                  else contextlib.nullcontext()):
-                x_u8 = self._upload(chunk, rep.device)
-                launched.append([self._fetch(self._process_device(
-                    self._pre_device(x_u8, trans,
-                                     (meta["inp_h"], meta["inp_w"]), rep),
-                    rep.model)) for (trans, meta), _ in scaled])
-        per_frame = []
-        for per_scale in launched:
-            for _, done in per_scale:
-                if done is not None:
-                    done.synchronize()
-            dets = [host.numpy() for host, _ in per_scale]
-            per_frame += [[self._post(d[i:i + 1], meta, scale)
-                           for d, ((_, meta), scale) in zip(dets, scaled)]
-                          for i in range(len(dets[0]))]
-        return [{"results": self.merge_outputs(d)}
-                for d in per_frame[:len(images)]]
+        results come back.
+
+        Its stages are spans inside `serve.batch` that tile the call
+        (per replica and scale where they repeat): `serve.upload`,
+        `serve.pre`, `serve.net`, `serve.decode`, `serve.fetch`,
+        `serve.wait`, `serve.post`, `serve.merge`."""
+        with span("serve.batch"):
+            with span("serve.upload"):
+                frames = np.stack([np.asarray(im) for im in images])
+                h, w = frames.shape[1:3]
+                n = len(self.replicas)
+                pad = (-len(frames)) % n
+                if pad:
+                    frames = np.concatenate(
+                        [frames, np.repeat(frames[-1:], pad, 0)])
+                scaled = [(self._scaled_trans(h, w, s), s)
+                          for s in self.scales]
+            launched = []
+            for rep, chunk in zip(self.replicas, np.split(frames, n)):
+                with (torch.cuda.stream(rep.stream) if rep.stream is not None
+                      else contextlib.nullcontext()):
+                    with span("serve.upload"):
+                        x_u8 = self._upload(chunk, rep.device)
+                    per_scale = []
+                    for (trans, meta), _ in scaled:
+                        with span("serve.pre"):
+                            x = self._pre_device(
+                                x_u8, trans, (meta["inp_h"], meta["inp_w"]),
+                                rep)
+                        with span("serve.net"):
+                            heads = self._heads(x, rep.model)
+                        with span("serve.decode"):
+                            dets = self._decode(heads)
+                        with span("serve.fetch"):
+                            per_scale.append(self._fetch(dets))
+                    launched.append(per_scale)
+            per_frame = []
+            for per_scale in launched:
+                with span("serve.wait"):
+                    for _, done in per_scale:
+                        if done is not None:
+                            done.synchronize()
+                with span("serve.post"):
+                    dets = [host.numpy() for host, _ in per_scale]
+                    per_frame += [[self._post(d[i:i + 1], meta, scale)
+                                   for d, ((_, meta), scale)
+                                   in zip(dets, scaled)]
+                                  for i in range(len(dets[0]))]
+            with span("serve.merge"):
+                return [{"results": self.merge_outputs(d)}
+                        for d in per_frame[:len(images)]]
 
     def _debug_views(self, image, images, heads, results):
         """Compose the debug views of the last scale's forward (ref

@@ -16,6 +16,7 @@ from torch.nn.parallel import DistributedDataParallel
 from ..losses import (PolydetLossConfig, ctdet_loss, ddd_loss, exdet_loss,
                       multi_pose_loss, polydet_loss)
 from ..models.layers import BatchNorm2d
+from ..utils.timers import span
 from . import mesh
 
 
@@ -77,23 +78,35 @@ def make_train_step(loss_cfg: PolydetLossConfig,
     (step.py:86-116 there), the reference DataParallel's rule: per-rank
     BatchNorm and losses, then one mean over the ranks of the flattened
     gradients, of the new running statistics and of the stats.  The clip
-    and Adam then run alike on every rank."""
+    and Adam then run alike on every rank.
+
+    A step's stages are spans inside `train.step` that tile it:
+    `train.zero_grad` (train mode, the group's wrapper, zeroed
+    gradients), `train.forward`, `train.loss` (the NHWC views and the task
+    loss), `train.backward`, `train.allreduce` (over a group: the stats'
+    and the bucketed step's reductions) and `train.adam`."""
     task_loss = loss_callable or polydet_loss
 
     def forward_backward(model, batch, loss_group, scale):
-        with _autocast(batch["input"].device, dtype):
+        with span("train.forward"), _autocast(batch["input"].device, dtype):
             outs = model(batch["input"])
-        loss, stats = task_loss(_nhwc_f32(outs), batch, loss_cfg,
-                                group=loss_group)
-        (loss if scale == 1.0 else loss * scale).backward()
-        return {k: v.detach() for k, v in stats.items()}
+        with span("train.loss"):
+            loss, stats = task_loss(_nhwc_f32(outs), batch, loss_cfg,
+                                    group=loss_group)
+            stats = {k: v.detach() for k, v in stats.items()}
+        with span("train.backward"):
+            (loss if scale == 1.0 else loss * scale).backward()
+        return stats
 
     if group is None:
         def train_step(state, batch):
-            model = state.model.train()
-            state.optimizer.zero_grad(set_to_none=True)
-            stats = forward_backward(model, batch, None, 1.0)
-            state.apply_gradients()
+            with span("train.step"):
+                with span("train.zero_grad"):
+                    model = state.model.train()
+                    state.optimizer.zero_grad(set_to_none=True)
+                stats = forward_backward(model, batch, None, 1.0)
+                with span("train.adam"):
+                    state.apply_gradients()
             return state, stats
 
         return train_step
@@ -121,19 +134,26 @@ def make_train_step(loss_cfg: PolydetLossConfig,
         return wrapped["run"]
 
     def train_step(state, batch):
-        model = state.model.train()
-        run = replica(model)
-        state.optimizer.zero_grad(set_to_none=True)
-        if grad_bucket:
-            stats = forward_backward(run, batch, None, 1.0)
-            _mean_over(group, [p.grad for p in model.parameters()
-                               if p.grad is not None])
-            _mean_over(group, [b for n, b in model.named_buffers()
-                               if n.endswith(("running_mean", "running_var"))])
-        else:
-            stats = forward_backward(run, batch, group, float(world))
-        stats = _sum_stats(stats, group, 1.0 / world if grad_bucket else 1.0)
-        state.apply_gradients()
+        with span("train.step"):
+            with span("train.zero_grad"):
+                model = state.model.train()
+                run = replica(model)
+                state.optimizer.zero_grad(set_to_none=True)
+            if grad_bucket:
+                stats = forward_backward(run, batch, None, 1.0)
+            else:
+                stats = forward_backward(run, batch, group, float(world))
+            with span("train.allreduce"):
+                if grad_bucket:
+                    _mean_over(group, [p.grad for p in model.parameters()
+                                       if p.grad is not None])
+                    _mean_over(group, [b for n, b in model.named_buffers()
+                                       if n.endswith(("running_mean",
+                                                      "running_var"))])
+                stats = _sum_stats(stats, group,
+                                   1.0 / world if grad_bucket else 1.0)
+            with span("train.adam"):
+                state.apply_gradients()
         return state, stats
 
     return train_step

@@ -39,6 +39,7 @@ from ..models import create_model
 from ..ops.decode import ctdet_decode, polydet_decode
 from ..utils.oracle import apply_oracles
 from ..utils.logger import Logger
+from ..utils.timers import span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .state import create_train_state
 from .step import loss_fn_for_task, make_eval_step, make_train_step, to_device
@@ -150,14 +151,22 @@ class Trainer:
     def run_epoch(self, epoch: int) -> Dict[str, float]:
         """One pass over the train loader.  Per-step stats stay on the
         device and are read once at the end, so the host does not wait on
-        the card every step."""
+        the card every step.  Beside the step's spans, `train.next_batch`
+        is the wait on the loader and `train.put` the batch's upload."""
         sums: Dict[str, torch.Tensor] = {}
         count = 0
         t0 = time.time()
         n = 0
-        for batch in self.train_loader:
+        batches = iter(self.train_loader)
+        while True:
+            with span("train.next_batch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             bsz = batch["input"].shape[0]
-            self.state, stats = self.train_step(self.state, self.put(batch))
+            with span("train.put"):
+                on_device = self.put(batch)
+            self.state, stats = self.train_step(self.state, on_device)
             for k, v in stats.items():
                 sums[k] = sums[k] + v * bsz if k in sums else v * bsz
             count += bsz

@@ -120,8 +120,14 @@ def test_soft_nms_matches(method):
 
 
 def test_stage_timer_accumulates():
-    t = StageTimer().start()
-    t.stage("a", fence=torch.zeros(1))   # a CPU tensor needs no fence
-    t.stage("b")
-    t.stage("a")
-    assert set(t.times) == {"a", "b"} and all(v >= 0 for v in t.times.values())
+    t = StageTimer(torch.device("cpu"))
+    with t.stage("a", device=True):   # off the card: on the host clock
+        torch.zeros(1)
+    with t.stage("b"):
+        pass
+    with t.stage("a"):
+        pass
+    times = t.read()
+    assert set(times) == {"a", "b", "tot"}
+    assert all(v >= 0 for v in times.values())
+    assert times["a"] + times["b"] <= times["tot"]

@@ -885,3 +885,58 @@ def test_experimental_device_losses_on_card(cuda, rep):
         assert abs(x - y) <= 1e-5 * abs(y)
     for x, y in zip(got[2:], ref[2:]):
         assert _rel(x, y) <= 1e-5 and y.abs().max() > 0
+
+
+def test_run_times_its_stages_without_a_fence(cuda, monkeypatch):
+    """`run` waits for the card only in its D2H copy: no
+    torch.cuda.synchronize between its stages, and `pre` and `net` are
+    the card's time between CUDA events at their boundaries."""
+    det = create_detector(Config(input_h=256, input_w=512, head_conv=64,
+                                 K=32))
+    frame = np.random.RandomState(0).randint(0, 256, (512, 1024, 3),
+                                             np.uint8)
+    det.run(frame)
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    ret = det.run(frame)
+    assert calls == []
+    assert ret["pre"] > 0 and ret["net"] > 0
+    assert ret["tot"] >= ret["load"] + ret["dec"] + ret["post"] + ret["merge"]
+
+
+def test_a_device_only_profile_counts_no_span(cuda, monkeypatch):
+    """The benchmark's device-only trace of `run_batch` (the window of its
+    serving runs) holds no `cp.*` range among its kernels, and its busy
+    time is that of the same calls with the spans patched out, within 2 %
+    (the end-to-end bound), median of three profiles each, in turns."""
+    import contextlib
+    import statistics
+    from benchmark.harness import trace
+    from centerpoly_tpu_torch.utils import timers
+    det = create_detector(Config(input_h=512, input_w=1024, head_conv=64,
+                                 K=128))
+    rng = np.random.RandomState(0)
+    frames = [rng.randint(0, 256, (1024, 2048, 3), np.uint8)
+              for _ in range(4)]
+
+    def calls():
+        for _ in range(8):
+            det.run_batch(frames)
+
+    calls()
+    real = timers.record_function
+    busy = {True: [], False: []}
+    for on in (True, False, False, True, True, False):
+        monkeypatch.setattr(timers, "record_function", real if on else
+                            (lambda name, args=None: contextlib.nullcontext()))
+        tr = trace.profile(calls, with_host=False)
+        assert not [n for n, _, _ in tr.kernels if n.startswith("cp.")]
+        busy[on].append(tr.busy_s)
+    with_spans, without = (statistics.median(busy[k]) for k in (True, False))
+    assert abs(with_spans - without) <= 0.02 * without, busy
