@@ -44,22 +44,11 @@ in its last bits between runs.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import NamedTuple
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-KERNELS = ("dcn_fwd", "dcn_bwd")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-I", CSRC]
+from . import nvcc
 
 # dcn_fwd's tiles (csrc/dcn_fwd.cu): output pixels a block, bytes of one
 # pixel's channels in a K chunk (64 bf16 or 32 f32 channels), and the
@@ -87,81 +76,9 @@ launches = {"exact": 0, "rowband": 0, "halo": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # clamp mode -> the kernels' `clamp` argument (none / y / xy)
 _CLAMP_CODE = {"exact": 0, "rowband": 1, "halo": 2}
-_libs: dict = {}
-
-
-def _nvcc() -> str:
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                           "to build the csrc/ kernels")
-    return found
-
-
-def _lib_path(name: str) -> str:
-    """The library of csrc/<name>.cu, keyed on every *.cu and *.cuh file
-    under csrc/ (any of them may be included) and on the nvcc flags, so an
-    edited header cannot leave a stale library in BUILD_DIR."""
-    h = hashlib.sha256(" ".join(f for f in NVCC_FLAGS if f != CSRC).encode())
-    for fn in sorted(os.listdir(CSRC)):
-        if fn.endswith((".cu", ".cuh")):
-            with open(os.path.join(CSRC, fn), "rb") as f:
-                h.update(fn.encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
-
-
-def build() -> dict[str, tuple[str, str]]:
-    """Compile every csrc/ source whose library is not yet in BUILD_DIR,
-    one nvcc process per source, all started together.  Returns
-    {name: (library path, nvcc's ptxas report)}."""
-    procs = {}
-    for name in KERNELS:
-        lib = _lib_path(name)
-        if not os.path.exists(lib):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            procs[name] = (subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                 os.path.join(CSRC, f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, lib)
-    failed = []
-    for name, (proc, tmp, lib) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc {name} failed ({proc.returncode}):\n{out}")
-            continue
-        with open(lib[:-3] + ".log", "w") as f:
-            f.write(out)
-        os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    ret = {}
-    for name in KERNELS:
-        lib = _lib_path(name)
-        with open(lib[:-3] + ".log") as f:
-            ret[name] = (lib, f.read())
-    return ret
-
-
-def _load(name: str):
-    if name not in _libs:
-        lib = ctypes.CDLL(build()[name][0])
-        p, i = ctypes.c_void_p, ctypes.c_int
-        if name == "dcn_fwd":
-            lib.dcn_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                    i, ctypes.c_float, i, i, p]
-            lib.dcn_fwd.restype = i
-        else:
-            lib.dcn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                    i, i, i, i, ctypes.c_float, i, i, i, p]
-            lib.dcn_bwd.restype = i
-        _libs[name] = lib
-    return _libs[name]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I, _I, _I, _P]
 
 
 def clamp_y_keep(oy: torch.Tensor, r: float) -> torch.Tensor:
@@ -392,11 +309,6 @@ def bwd_plan(npix: int, cin: int, cout: int, n_sm: int) -> BwdPlan:
     return BwdPlan(bn, m_tiles, n_tiles, k_tiles, splits, data_splits)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check(x, offsets, masks, weights, bias, g=None):
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"dcn: x must be float32 or bfloat16, got {x.dtype}")
@@ -437,20 +349,20 @@ def _forward(x, offsets, masks, weights, bias, max_offset_y, max_offset):
     cout = weights.shape[-1]
     npix = b * h * w
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    lib = _load("dcn_fwd")
+    fwd = nvcc.load("dcn_fwd", "dcn_fwd", _FWD_ARGS)
     with torch.cuda.device(x.device):
         plan = fwd_plan(npix, cin, cout,
-                        _sm_count(torch.cuda.current_device()), x.dtype)
+                        nvcc.sm_count(torch.cuda.current_device()), x.dtype)
         # the splits' f32 partial sums (stream-ordered: its memory is
         # reused only after the reduce has run)
         ws = (torch.empty((plan.splits, npix, cout), dtype=torch.float32,
                           device=x.device) if plan.splits > 1 else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcn_fwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
-                          weights.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                          None if ws is None else ws.data_ptr(), b, h, w, cin,
-                          cout, _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode],
-                          r or 0.0, plan.bn, plan.splits, stream)
+        err = fwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
+                  weights.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                  None if ws is None else ws.data_ptr(), b, h, w, cin,
+                  cout, _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode],
+                  r or 0.0, plan.bn, plan.splits, stream)
     if err != 0:
         raise RuntimeError(f"dcn_fwd launch failed: cudaError {err}")
     launches[mode] += 1
@@ -491,22 +403,22 @@ def deform_conv2d_backward(x, offsets, masks, weights, bias, g,
     dmask = torch.empty((b, h, w, 9), dtype=torch.float32, device=x.device)
     dx = torch.zeros((b, h, w, cin), dtype=torch.float32, device=x.device)
     dw = torch.empty_like(weights)
-    lib = _load("dcn_bwd")
+    bwd = nvcc.load("dcn_bwd", "dcn_bwd", _BWD_ARGS)
     with torch.cuda.device(x.device):
         plan = bwd_plan(npix, cin, cout,
-                        _sm_count(torch.cuda.current_device()))
+                        nvcc.sm_count(torch.cuda.current_device()))
         # the pixel splits' f32 partial dW (stream-ordered: its memory is
         # reused only after the reduce has run)
         ws = (torch.empty((plan.splits, 9 * cin, cout), dtype=torch.float32,
                           device=x.device) if plan.splits > 1 else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcn_bwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
-                          weights.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                          doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
-                          None if ws is None else ws.data_ptr(), b, h, w,
-                          cin, cout, _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode],
-                          r or 0.0, plan.data_splits, plan.bn, plan.splits,
-                          stream)
+        err = bwd(x.data_ptr(), offsets.data_ptr(), masks.data_ptr(),
+                  weights.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                  doff.data_ptr(), dmask.data_ptr(), dw.data_ptr(),
+                  None if ws is None else ws.data_ptr(), b, h, w,
+                  cin, cout, _DTYPE_CODE[x.dtype], _CLAMP_CODE[mode],
+                  r or 0.0, plan.data_splits, plan.bn, plan.splits,
+                  stream)
     if err != 0:
         raise RuntimeError(f"dcn_bwd launch failed: cudaError {err}")
     launches[f"bwd_{mode}"] += 1

@@ -8,9 +8,10 @@ IDAUp where every projection and merge node is a DCNv2 DeformConv
 its state_dict loads as it is.  `plain_upsample=True` is the JAX
 package's DCN-free `dlav0_34` (its models/dla.py:165-190): every IDAUp
 projection and node is a 3x3 ConvBN (`proj_i.{0,1}`, `node_i.{0,1}`), so
-no DCN kernel runs.  NCHW throughout; the detector keeps the
-model in channels_last memory, so the NHWC view the DCN kernel takes is
-free.
+no DCN kernel runs.  NCHW throughout; on the card the model is kept in
+channels_last memory (the detector and the trainer do so), so the NHWC
+view the DCN kernel takes is free and the up-sampler's kernel, which
+takes nothing else, runs.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels import upsample
 from .deform_conv import DeformConvBlock
 from .heads import head_stack
 from .layers import BatchNorm2d, ConvBN, Residual, bilinear_upsample_kernel
@@ -134,7 +136,14 @@ class DepthwiseUpsample(nn.ConvTranspose2d):
     (ref pose_dla_dcn.py:372-375 grouped ConvTranspose2d + fill_up_weights).
 
     The JAX package keeps this weight spatially flipped (an lhs-dilated
-    conv); weights.state_dict_from_jax flips it back."""
+    conv); weights.state_dict_from_jax flips it back.
+
+    `forward(x, skip)` returns the up-sampled x plus skip.  On CUDA
+    tensors where autograd records nothing, one launch of
+    kernels/upsample.py's kernel computes both (it raises on a call it
+    cannot compute, such as NCHW memory: the model on the card is kept
+    channels-last); where autograd records, on the CPU and without a
+    skip, the transposed convolution runs, then the add."""
 
     def __init__(self, channels: int, factor: int):
         super().__init__(channels, channels, 2 * factor, stride=factor,
@@ -143,12 +152,20 @@ class DepthwiseUpsample(nn.ConvTranspose2d):
             self.weight.copy_(torch.from_numpy(
                 bilinear_upsample_kernel(2 * factor)).expand_as(self.weight))
 
+    def forward(self, x, skip=None):
+        if (skip is None or x.device.type != "cuda"
+                or upsample.records(x, self.weight, skip)):
+            y = super().forward(x)
+            return y if skip is None else y + skip
+        return upsample.upsample_add(x, self.weight, self.stride[0], skip)
+
 
 class IDAUp(nn.Module):
     """Iterative deep aggregation step (ref pose_dla_dcn.py:362-387): for
-    layers[1:], project to `out_channels` (DCN), upsample, and merge with
-    the previous layer through a DCN node; with `plain`, a 3x3 ConvBN in
-    place of each DCN block (dlav0)."""
+    layers[1:], project to `out_channels` (DCN), upsample and add the
+    previous layer (one step of DepthwiseUpsample), and merge through a
+    DCN node; with `plain`, a 3x3 ConvBN in place of each DCN block
+    (dlav0)."""
 
     def __init__(self, out_channels: int, channels: Sequence[int],
                  up_factors: Sequence[int], dcn_kernel: str = "auto",
@@ -166,8 +183,9 @@ class IDAUp(nn.Module):
     def forward(self, layers: List[torch.Tensor]) -> List[torch.Tensor]:
         out = [layers[0]]
         for i in range(1, self.n):
-            x = getattr(self, f"up_{i}")(getattr(self, f"proj_{i}")(layers[i]))
-            out.append(getattr(self, f"node_{i}")(x + out[i - 1]))
+            x = getattr(self, f"up_{i}")(
+                getattr(self, f"proj_{i}")(layers[i]), out[i - 1])
+            out.append(getattr(self, f"node_{i}")(x))
         return out
 
 

@@ -25,8 +25,8 @@ targets and the host tools.  Phases
 (any failure exits non-zero, with no result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build csrc/dcn_fwd.cu and csrc/dcn_bwd.cu with nvcc (sm_90a), one
-     process each, and print ptxas's report;
+  2. build csrc/dcn_fwd.cu, csrc/dcn_bwd.cu and csrc/upsample.cu with
+     nvcc (sm_90a), one process each, and print ptxas's report;
   3. the forward kernel against `deform_conv2d_ref` at the 7 DCN node
      shapes of the path, at resdcn_101's (16, 32, 2048, 256) node (batch
      1 and 4) and at the card tests' tile shapes (split K, one
@@ -36,10 +36,20 @@ targets and the host tools.  Phases
      plain version rounds the bilinear fractions and corner products to
      bf16, deform_conv.py:122, the kernel blends in f32 and rounds the
      modulated sample once); then two calls bit-equal, split and unsplit;
+     then csrc/upsample.cu's `ida_upsample_add` against cuDNN's
+     transposed convolution + the add at DLA-34's 8 up-sampler shapes,
+     batch 4, f32 (relative max 1e-5) and bf16 (within cuDNN + add's own
+     distance from f32 plus one ulp), two calls bit-equal, and its device
+     ms a frame (CUDA graph replay) beside cuDNN's and the bytes bound
+     (`upsample_vs_plain`);
   4. the slice: bf16 detector (the inference default rowband:6, then the
      exact `off` mode) on seeded frames, each path run with the launch
-     counts zeroed just before and read just after (16 a forward); f32 on
-     the card (TF32 off) against the port on the CPU, per head;
+     counts zeroed just before and read just after (16 DCN and 8
+     up-sampler launches a DLA-34 forward, in this phase and wherever a
+     DLA-34 forward is counted; 0 up-sampler launches in a train step, 8
+     a val batch of `main`, 0 on the hourglass, ResNet and resdcn nets, 8
+     on dlav0_34); f32 on the card (TF32 off) against the port on the
+     CPU, per head;
   5. the slice in halo:4: `run` and `run_batch` (16 halo launches a
      forward, none of another mode), `run_stream` equal to `run` frame by
      frame, f32 heads on the card against the CPU, and
@@ -290,7 +300,15 @@ HG_GAIN = 0.8
 # heads within ~1 (measured on the CPU at 256x512)
 RES101_GAIN = 0.9
 SOURCES = {"dcn_fwd": "centerpoly_tpu_torch/csrc/dcn_fwd.cu",
-           "dcn_bwd": "centerpoly_tpu_torch/csrc/dcn_bwd.cu"}
+           "dcn_bwd": "centerpoly_tpu_torch/csrc/dcn_bwd.cu",
+           "ida_upsample_add": "centerpoly_tpu_torch/csrc/upsample.cu"}
+# (C, f, input H, W) of DLA-34's 8 IDA up-samplers at 512x1024 input
+# (dla_up.ida_0.up_1, ida_1.up_1-2, ida_2.up_1-3, ida_up.up_1-2), each
+# one `ida_upsample_add` launch a no-grad forward on the card
+UPSAMPLERS = [(256, 2, 16, 32), (128, 2, 32, 64), (128, 2, 32, 64),
+              (64, 2, 64, 128), (64, 2, 64, 128), (64, 2, 64, 128),
+              (64, 2, 64, 128), (64, 4, 32, 64)]
+UP_BATCH = 4    # the serving cells' batch
 REPLACES = {"dcn_fwd[exact]": "centerpoly_tpu/kernels/dcn_pallas.py:44",
             "dcn_fwd[rowband]": "centerpoly_tpu/kernels/dcn_rowband.py:132",
             "dcn_fwd[halo]": "centerpoly_tpu/kernels/dcn_halo.py:124",
@@ -485,9 +503,9 @@ def phase_card():
 
 def phase_build():
     """Build every csrc/ source (one nvcc each, started together)."""
-    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.kernels import nvcc
     t0 = time.perf_counter()
-    built = dcn.build()
+    built = nvcc.build()
     print(f"[build] {', '.join(os.path.relpath(p) for p, _ in built.values())}"
           f" in {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in built.items():
@@ -547,19 +565,113 @@ def phase_kernel_vs_plain():
                   f"two calls differ at {shape} {dtype}")
             print(f"[kernel] {shape} {str(dtype)[6:]:8s} splits "
                   f"{fwd_splits(shape, 1, dtype)}: two calls bit-equal")
-    return errs
+    return errs, upsample_vs_plain()
+
+
+def upsample_vs_plain():
+    """`ida_upsample_add` against its plain version (cuDNN's transposed
+    convolution, then the add) at DLA-34's 8 up-sampler shapes, batch
+    UP_BATCH, f32 (TF32 off: relative max 1e-5) and bf16 (every output
+    within cuDNN + add's own largest distance from the f32 result plus one
+    bf16 ulp: a wrong tap or weight moves outputs by whole units), one
+    launch a call, two calls bit-equal; then the device ms a frame of the
+    8, by CUDA graph replay, beside the plain version's and cuDNN's
+    transposed convolution alone (CUDA events), and the bytes bound.
+    Returns the kernels line's fields (`max_abs_err`: bf16, against the
+    f32 result on the same inputs)."""
+    import torch
+    import torch.nn.functional as F
+    from centerpoly_tpu_torch.kernels import upsample
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cl = torch.channels_last
+    err = 0.0
+    times = {dt: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+             for dt in (torch.bfloat16, torch.float32)}
+    n_bytes = 0
+    for i, (c, f, h, w) in enumerate(UPSAMPLERS):
+        g = torch.Generator().manual_seed(SEED + i)
+        ho, wo = upsample.out_size(h, f), upsample.out_size(w, f)
+        x32 = torch.randn(UP_BATCH, c, h, w, generator=g)
+        skip32 = torch.randn(UP_BATCH, c, ho, wo, generator=g)
+        w32 = torch.randn(c, 1, 2 * f, 2 * f, generator=g) / 2
+        n_bytes += 2 * (x32.numel() + 2 * skip32.numel()) // UP_BATCH
+        for dtype, t in times.items():
+            x = x32.to("cuda", dtype, memory_format=cl)
+            skip = skip32.to("cuda", dtype, memory_format=cl)
+            wt = w32.to("cuda", dtype)
+            before = upsample.launches
+            got = upsample.upsample_add(x, wt, f, skip)
+            again = upsample.upsample_add(x, wt, f, skip)
+            plain = upsample.upsample_add_ref(x, wt, f, skip)
+            torch.cuda.synchronize()
+            check(upsample.launches == before + 2
+                  and got.is_contiguous(memory_format=cl)
+                  and torch.equal(got, again),
+                  f"ida_upsample_add {c} f{f} {dtype}: launches, layout or "
+                  f"two calls")
+            if dtype == torch.float32:
+                rel = rel_max(got, plain)
+                check(rel < 1e-5, f"ida_upsample_add {c} f{f} f32 rel_max "
+                      f"{rel:.3e}")
+                line = f"rel_max {rel:.3e} (tol 1e-5)"
+            else:
+                ref = upsample.upsample_add_ref(x.float(), wt.float(), f,
+                                                skip.float())
+                lib = (plain.float() - ref).abs().max()
+                d = (got.float() - ref).abs()
+                _, e = torch.frexp(ref)
+                check(bool((d <= lib + torch.ldexp(torch.ones_like(ref),
+                                                   e - 8)).all()),
+                      f"ida_upsample_add {c} f{f} bf16: {d.max().item():.3e}"
+                      f" over cuDNN + add's {lib.item():.3e} + 1 ulp")
+                err = max(err, d.max().item())
+                line = (f"max_abs vs f32 {d.max().item():.3e} (cuDNN + add "
+                        f"{lib.item():.3e})")
+            t["ms"] += graph_ms(
+                lambda: upsample.upsample_add(x, wt, f, skip), 20) / UP_BATCH
+            t["plain_ms"] += cuda_ms(
+                lambda: upsample.upsample_add_ref(x, wt, f, skip), 2,
+                20) / UP_BATCH
+            t["library_ms"] += cuda_ms(
+                lambda: F.conv_transpose2d(x, wt, stride=f, padding=f // 2,
+                                           groups=c), 2, 20) / UP_BATCH
+            print(f"[upsample] b{UP_BATCH} C {c} f {f} {h}x{w} "
+                  f"{str(dtype)[6:]:8s} {line}")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+    bound = n_bytes / PEAK_BYTES * 1e3
+    bf, f32 = times[torch.bfloat16], times[torch.float32]
+    print(f"[upsample] a frame's 8 (bf16, batch {UP_BATCH}): kernel "
+          f"{bf['ms']:.4f} ms, plain (cuDNN + add) {bf['plain_ms']:.4f}, "
+          f"cuDNN alone {bf['library_ms']:.4f}, bound {bound:.4f} "
+          f"({n_bytes / 1e6:.1f} MB over 3.35 TB/s; "
+          f"{100 * bound / bf['ms']:.1f} %); f32 {f32['ms']:.4f} / "
+          f"{f32['plain_ms']:.4f} / {f32['library_ms']:.4f}, bound "
+          f"{2 * bound:.4f}")
+    return {"max_abs_err": err, "ms": bf["ms"], "plain_ms": bf["plain_ms"],
+            "library_ms": bf["library_ms"], "bound_ms": bound,
+            "bound_by": "bytes", "f32_ms": f32["ms"],
+            "f32_plain_ms": f32["plain_ms"],
+            "f32_library_ms": f32["library_ms"], "f32_bound_ms": 2 * bound}
 
 
 def run_counted(fn, key, nodes=16):
-    """Run one path with the launch counts zeroed just before and read
+    """Run one forward with the launch counts zeroed just before and read
     just after: one `key` launch a DCN node of the net (DLA-34 16,
-    resdcn 3), none of another kind."""
-    from centerpoly_tpu_torch.kernels import dcn
+    resdcn 3), none of another kind, and one `ida_upsample_add` launch an
+    up-sampler (DLA-34 8, resdcn none)."""
+    from centerpoly_tpu_torch.kernels import dcn, upsample
+    ups = 8 if nodes == 16 else 0
     zero_counts()
     out = fn()
     counts = dict(dcn.launches)
     check(counts[key] == nodes and sum(counts.values()) == nodes,
           f"expected {nodes} {key} launches, got {counts}")
+    check(upsample.launches == ups, f"expected {ups} ida_upsample_add "
+          f"launches, got {upsample.launches}")
     return out, counts[key]
 
 
@@ -680,7 +792,7 @@ def phase_halo_slice(sd, frames, root):
     import torch
     from centerpoly_tpu_torch.configs import Config
     from centerpoly_tpu_torch.infer.detector import create_detector
-    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.kernels import dcn, upsample
     from centerpoly_tpu_torch.tools import analyze_dcn_offsets
 
     cfg = Config(dcn_kernel=f"halo:{HALO_R}")
@@ -709,8 +821,9 @@ def phase_halo_slice(sd, frames, root):
     counts = dict(dcn.launches)
     torch.backends.cudnn.deterministic = flags
     check(counts["halo"] == 16 * len(frames)
-          and sum(counts.values()) == counts["halo"],
-          f"run_stream launches {counts}")
+          and sum(counts.values()) == counts["halo"]
+          and upsample.launches == 8 * len(frames),
+          f"run_stream launches {counts}, {upsample.launches} up-sampler")
     check(len(streamed) == len(frames), "run_stream dropped frames")
     for i, (got, ref) in enumerate(zip(streamed, runs)):
         check(set(got) == set(ref) and all(
@@ -1062,9 +1175,10 @@ def phase_bwd_vs_plain():
 
 
 def zero_counts():
-    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.kernels import dcn, upsample
     for k in dcn.launches:
         dcn.launches[k] = 0
+    upsample.launches = 0
 
 
 def exp_id(arch, kernel):
@@ -1138,7 +1252,7 @@ def phase_train(root):
     batch and a checkpoint round trip."""
     import torch
     from centerpoly_tpu_torch import main as tmain
-    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.kernels import dcn, upsample
 
     trainers, launches = {}, {}
     for mode, kernel in TRAIN_MODES.items():
@@ -1147,6 +1261,7 @@ def phase_train(root):
         tr = tmain.main(train_argv(root, kernel), device="cuda")
         torch.cuda.synchronize()
         counts = dict(dcn.launches)
+        ups = upsample.launches
         dt = time.perf_counter() - t0
         steps, n_val = tr.state.step, len(tr.val_loader)
         want = dict.fromkeys(counts, 0)
@@ -1157,6 +1272,10 @@ def phase_train(root):
               f"val batches in {dt:.1f} s; launches {counts}")
         check(steps == 2 and counts == want,
               f"expected 16 forward + 16 backward launches a step, {want}")
+        # the up-sampler's kernel in each no-grad val forward, never in a
+        # step (autograd records there)
+        check(ups == 8 * n_val, f"{ups} ida_upsample_add launches over "
+              f"{n_val} val batches and {steps} steps, expected {8 * n_val}")
         check_saved(root, "dla_34", kernel)
         launches[mode] = counts[f"bwd_{mode}"]
         trainers[mode] = tr
@@ -1583,15 +1702,19 @@ def phase_train_times(trainers):
             print(f"[train-profile] {ms:8.3f} ms {n:4d} calls  {key[:90]}")
 
 
-def count_free(fn, label):
+def count_free(fn, label, ups=0):
     """Run one path of a net with no DCNv2 node with the launch counts
-    zeroed just before and read just after: every count must read 0."""
-    from centerpoly_tpu_torch.kernels import dcn
+    zeroed just before and read just after: every DCN count must read 0,
+    the `ida_upsample_add` count `ups` (8 a dlav0_34 forward, 0 on a net
+    without DLA's up-samplers)."""
+    from centerpoly_tpu_torch.kernels import dcn, upsample
     zero_counts()
     out = fn()
     counts = {k: v for k, v in dcn.launches.items() if v}
     check(not counts, f"{label}: DCN launches {counts} on a net with no "
           f"DCNv2 node")
+    check(upsample.launches == ups, f"{label}: {upsample.launches} "
+          f"ida_upsample_add launches, expected {ups}")
     return out
 
 
@@ -1851,7 +1974,8 @@ def heads_vs_cpu(arch, sd, frame, nodes):
                 nodes)
         else:
             got = count_free(lambda: det._heads(
-                x.to("cuda", memory_format=torch.channels_last)), arch)
+                x.to("cuda", memory_format=torch.channels_last)), arch,
+                8 if arch == "dlav0_34" else 0)
     check_heads(f"{arch} {x.shape[2]}x{x.shape[3]}", ref, got)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = flags
@@ -1874,12 +1998,14 @@ def step_launches(tr, nodes):
     and `nodes` exact backward launches, none of another kind.  Returns
     the counts."""
     import torch
-    from centerpoly_tpu_torch.kernels import dcn
+    from centerpoly_tpu_torch.kernels import dcn, upsample
     batch = tr.put(next(iter(tr.train_loader)))
     torch.cuda.synchronize()
     zero_counts()
     tr.state, _ = tr.train_step(tr.state, batch)
     torch.cuda.synchronize()
+    check(upsample.launches == 0, f"{upsample.launches} ida_upsample_add "
+          f"launches in a train step")
     counts = {k: v for k, v in dcn.launches.items() if v}
     check(counts == {"exact": nodes, "bwd_exact": nodes}, f"one train "
           f"step: expected {nodes} forward + {nodes} backward launches, got "
@@ -4484,7 +4610,7 @@ def main() -> int:
     if args.bwd_times:
         phase_bwd_times(check_plain=False)
         return 0
-    errs = phase_kernel_vs_plain()
+    errs, up = phase_kernel_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         det, sd, frames, launches = phase_slice()
         det_halo, launches["halo"] = phase_halo_slice(sd, frames, root)
@@ -4605,6 +4731,12 @@ def main() -> int:
     for k, mode in zip(kernels[3:], BWD_CLAMPS):
         node = resdcn_node["bwd"][mode]
         k.update({f"resdcn101_node_{key}": node[key] for key in node})
+    # the up-sampler (no TPU kernel: XLA's grouped convolution in the JAX
+    # package): a frame of DLA-34's 8 at batch 4; 8 launches a forward,
+    # counted in every DLA-34 run of phases 4-5 and the val forwards of 6
+    kernels.append({"name": "ida_upsample_add", "route": "cuda",
+                    "source": SOURCES["ida_upsample_add"], "replaces": None,
+                    "launches": 8, **up})
     stop_helper_processes()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

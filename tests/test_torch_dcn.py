@@ -26,7 +26,7 @@ from centerpoly_tpu.kernels.dcn_halo import (deform_conv2d_halo,
 from centerpoly_tpu.kernels.dcn_rowband import (deform_conv2d_rowband,
                                                 deform_conv2d_rowband_ref)
 from centerpoly_tpu.models import deform_conv as jdc
-from centerpoly_tpu_torch.kernels import dcn
+from centerpoly_tpu_torch.kernels import dcn, nvcc
 from centerpoly_tpu_torch.models.deform_conv import (DCNv2, DeformConvBlock,
                                                      parse_dcn_kernel)
 
@@ -291,20 +291,20 @@ def test_lib_path_tracks_every_source_and_header(tmp_path, monkeypatch):
     do not count."""
     import shutil
     csrc = tmp_path / "csrc"
-    shutil.copytree(dcn.CSRC, csrc)
-    monkeypatch.setattr(dcn, "CSRC", str(csrc))
+    shutil.copytree(nvcc.CSRC, csrc)
+    monkeypatch.setattr(nvcc, "CSRC", str(csrc))
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
     assert headers, "csrc/ holds no header"
-    base = {k: dcn._lib_path(k) for k in dcn.KERNELS}
+    base = {k: nvcc.lib_path(k) for k in nvcc.KERNELS}
     (csrc / "notes.txt").write_text("not a source")
-    assert {k: dcn._lib_path(k) for k in dcn.KERNELS} == base
-    for name in (headers[0], "dcn_fwd.cu", "dcn_bwd.cu"):
+    assert {k: nvcc.lib_path(k) for k in nvcc.KERNELS} == base
+    for name in (headers[0], *(f"{k}.cu" for k in nvcc.KERNELS)):
         orig = (csrc / name).read_bytes()
         (csrc / name).write_bytes(orig + b"\n// touched\n")
-        for k in dcn.KERNELS:
-            assert dcn._lib_path(k) != base[k], (name, k)
+        for k in nvcc.KERNELS:
+            assert nvcc.lib_path(k) != base[k], (name, k)
         (csrc / name).write_bytes(orig)
-        assert {k: dcn._lib_path(k) for k in dcn.KERNELS} == base
+        assert {k: nvcc.lib_path(k) for k in nvcc.KERNELS} == base
 
 
 def test_layer_init_and_names():
