@@ -940,3 +940,26 @@ def test_a_device_only_profile_counts_no_span(cuda, monkeypatch):
         busy[on].append(tr.busy_s)
     with_spans, without = (statistics.median(busy[k]) for k in (True, False))
     assert abs(with_spans - without) <= 0.02 * without, busy
+
+
+def test_resdcn101_run_batch_on_card(cuda):
+    """resdcn_101 served as the benchmark's resdcn101.serve-batch4 cell
+    serves it (`create_detector(cfg).run_batch` of 4 seeded
+    2048x1024 frames, bf16 rowband:6, the cell's seeded weights): 3
+    `dcn.launches` a call, no up-sampler launch, and the served rows
+    within the cell's limits of the plain f32 reference."""
+    from benchmark.harness import cells
+    from centerpoly_tpu_torch.kernels import upsample
+    cell = cells.load("resdcn101.serve-batch4")
+    drv = cells.driver("serve_batch")(cell, 3000000101, cuda)
+    drv.warm_up()
+    d0, u0 = sum(dcn.launches.values()), upsample.launches
+    drv.call(drv._next())
+    torch.cuda.synchronize()
+    assert sum(dcn.launches.values()) - d0 == 3
+    assert upsample.launches == u0
+    assert drv.window(1.0)["failed"] == 0
+    drv.release()
+    numbers = drv.check()
+    for name, limit in cell["limits"].items():
+        assert numbers[name] <= limit, (name, numbers)
