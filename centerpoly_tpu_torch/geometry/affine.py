@@ -2,7 +2,9 @@
 
 The 2x3 matrix is solved in closed form from the reference's three point
 correspondences (src/lib/utils/image.py:27-92) on the host;
-`warp_axis_aligned` warps on the device as two f32 matrix products, and
+`warp_axis_aligned` warps as two f32 matrix products (the plain version of
+the serving warp, kernels/warp.py: the detector runs it on the CPU, the
+card runs csrc/warp.cu), and
 `warp_affine_np` warps a rotated or sheared affine on the host in numpy
 (the multi_pose sampler's rotation; no cv2).  Points are (x, y); images
 are HWC at these functions.

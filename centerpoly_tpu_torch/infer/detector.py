@@ -9,7 +9,8 @@ y1, score], in source-image coordinates.  The ddd, exdet and multi_pose
 detectors (infer/task_detectors.py) share this run loop.
 
 On the device: the axis-aligned affine warp + normalisation of the full
-frame, the model, sigmoid, optional flip average and the top-K decode.
+frame (on the card one launch of csrc/warp.cu a batch, kernels/warp.py),
+the model, sigmoid, optional flip average and the top-K decode.
 On the host: the inverse affine back to source coordinates and the merge.
 `run_batch(images)` runs one forward over a stack of frames, or, with a
 list of devices, one replica of the net per device (the JAX package's
@@ -29,7 +30,8 @@ import numpy as np
 import torch
 
 from ..configs import Config
-from ..geometry.affine import get_affine_transform, warp_axis_aligned
+from ..geometry.affine import get_affine_transform
+from ..kernels import warp
 from ..models import create_model
 from ..ops.decode import ctdet_decode, polydet_decode
 from ..ops.nms import soft_nms
@@ -94,14 +96,11 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class Replica:
-    """One copy of the net for `run_batch`: its device, model,
-    normalisation constants and CUDA stream (None on the CPU, and for the
-    detector's own model without a device list: it runs on the current
-    stream)."""
+    """One copy of the net for `run_batch`: its device, model and CUDA
+    stream (None on the CPU, and for the detector's own model without a
+    device list: it runs on the current stream)."""
     device: torch.device
     model: torch.nn.Module
-    mean: torch.Tensor
-    std: torch.Tensor
     stream: object = None
 
 
@@ -143,14 +142,10 @@ class BaseDetector:
             load_weights(model, variables, strict=True)
         self.model = model.to(self.device, self.dtype,
                               memory_format=torch.channels_last).eval()
-        self.mean = torch.tensor(cfg.mean, dtype=torch.float32,
-                                 device=self.device)
-        self.std = torch.tensor(cfg.std, dtype=torch.float32,
-                                device=self.device)
         self.num_classes = cfg.num_classes
         self.max_per_image = cfg.K
         self.scales = cfg.test_scales
-        own = Replica(self.device, self.model, self.mean, self.std)
+        own = Replica(self.device, self.model)
         self.replicas = [own] if devices is None else [
             self._replica(d, own, share=i == 0 and d == self.device)
             for i, d in enumerate(devices)]
@@ -159,11 +154,10 @@ class BaseDetector:
     def _replica(device: torch.device, own: Replica,
                  share: bool = False) -> Replica:
         """The detector's own net (`share`: the first entry, on its
-        device) or a copy of it and its constants on `device`, with a
-        stream of its own on a card."""
+        device) or a copy of it on `device`, with a stream of its own on a
+        card."""
         rep = (dataclasses.replace(own) if share else
-               Replica(device, copy.deepcopy(own.model).to(device),
-                       own.mean.to(device), own.std.to(device)))
+               Replica(device, copy.deepcopy(own.model).to(device)))
         if device.type == "cuda":
             rep.stream = torch.cuda.Stream(device)
             # the copies ran on the default stream: done before any
@@ -179,19 +173,28 @@ class BaseDetector:
     # would double the device time for the same results
     flip_tta: bool = True
 
-    def _pre_device(self, frames_u8: torch.Tensor, trans, size,
-                    replica: Replica | None = None) -> torch.Tensor:
+    def _pre_device(self, frames_u8: torch.Tensor, trans,
+                    size) -> torch.Tensor:
         """uint8 (B, H, W, 3) frames -> normalized (B[*2], 3, inp_h, inp_w)
-        network input in the model's dtype and memory format, with the
-        constants of `replica` (the detector's own by default); doubled as
-        [originals; flipped] under flip_test where `flip_tta` is set."""
-        rep = replica or self.replicas[0]
-        x = torch.stack([warp_axis_aligned(f.float(), trans, size)
-                         for f in frames_u8])
-        x = ((x / 255.0 - rep.mean) / rep.std).permute(0, 3, 1, 2)
-        if self.cfg.flip_test and self.flip_tta:
-            x = torch.cat([x, x.flip(3)])
-        return x.to(self.dtype, memory_format=torch.channels_last)
+        network input in the model's dtype and memory format, for the host
+        affine `trans` (source -> input); doubled as [originals; flipped]
+        under flip_test where `flip_tta` is set.  Frames on the card go
+        through the kernel (`warp.warp_normalize`, which raises where it
+        cannot compute them), laid out densely first (a frame made from a
+        permuted array keeps its strides), frames on the CPU through its
+        plain version."""
+        cfg = self.cfg
+        if frames_u8.device.type == "cuda":
+            x = warp.warp_normalize(frames_u8.contiguous(), trans, size,
+                                    cfg.mean, cfg.std, self.dtype)
+        else:
+            x = warp.warp_normalize_ref(frames_u8, trans, size, cfg.mean,
+                                        cfg.std, self.dtype)
+        if cfg.flip_test and self.flip_tta:
+            # the flip commutes with the cast: the bits of flipping first
+            x = torch.cat([x, x.flip(3)]).contiguous(
+                memory_format=torch.channels_last)
+        return x
 
     def _heads(self, images, model=None):
         return (model or self.model)(images)[-1]
@@ -302,7 +305,7 @@ class BaseDetector:
         detections are copied to pinned host memory behind an event and
         are valid once it has completed."""
         trans, meta = self._scaled_trans(*frame.shape[1:3], scale)
-        images = self._pre_device(frame, self._upload(trans.astype(np.float32)),
+        images = self._pre_device(frame, trans,
                                   (meta["inp_h"], meta["inp_w"]))
         return (*self._fetch(self._process_device(images)), meta)
 
@@ -384,8 +387,7 @@ class BaseDetector:
                     for (trans, meta), _ in scaled:
                         with span("serve.pre"):
                             x = self._pre_device(
-                                x_u8, trans, (meta["inp_h"], meta["inp_w"]),
-                                rep)
+                                x_u8, trans, (meta["inp_h"], meta["inp_w"]))
                         with span("serve.net"):
                             heads = self._heads(x, rep.model)
                         with span("serve.decode"):

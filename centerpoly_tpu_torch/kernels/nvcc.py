@@ -15,7 +15,7 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-KERNELS = ("dcn_fwd", "dcn_bwd", "upsample")
+KERNELS = ("dcn_fwd", "dcn_bwd", "upsample", "warp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

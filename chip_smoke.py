@@ -25,8 +25,9 @@ targets and the host tools.  Phases
 (any failure exits non-zero, with no result line):
 
   1. the card: nvidia-smi name and power limit, device name and count;
-  2. build csrc/dcn_fwd.cu, csrc/dcn_bwd.cu and csrc/upsample.cu with
-     nvcc (sm_90a), one process each, and print ptxas's report;
+  2. build csrc/dcn_fwd.cu, csrc/dcn_bwd.cu, csrc/upsample.cu and
+     csrc/warp.cu with nvcc (sm_90a), one process each, and print ptxas's
+     report;
   3. the forward kernel against `deform_conv2d_ref` at the 7 DCN node
      shapes of the path, at resdcn_101's (16, 32, 2048, 256) node (batch
      1 and 4) and at the card tests' tile shapes (split K, one
@@ -41,7 +42,14 @@ targets and the host tools.  Phases
      batch 4, f32 (relative max 1e-5) and bf16 (within cuDNN + add's own
      distance from f32 plus one ulp), two calls bit-equal, and its device
      ms a frame (CUDA graph replay) beside cuDNN's and the bytes bound
-     (`upsample_vs_plain`);
+     (`upsample_vs_plain`); then csrc/warp.cu's `warp_normalize` against
+     its plain version (two dense f32 sampling-matrix GEMMs, normalise,
+     cast) on UP_BATCH 2048x1024 frames onto the 512x1024 input, at the
+     serving transform and at a non-integer scale and shift, f32 (1e-5
+     absolute) and bf16 (its own f32 rounded once; the plain bf16 but
+     for one rounding of values whose f32 differ), two calls bit-equal,
+     and its device ms a frame (CUDA graph replay) beside the plain
+     path's, the two GEMMs' and the bytes bound (`warp_vs_plain`);
   4. the slice: bf16 detector (the inference default rowband:6, then the
      exact `off` mode) on seeded frames, each path run with the launch
      counts zeroed just before and read just after (16 DCN and 8
@@ -301,7 +309,8 @@ HG_GAIN = 0.8
 RES101_GAIN = 0.9
 SOURCES = {"dcn_fwd": "centerpoly_tpu_torch/csrc/dcn_fwd.cu",
            "dcn_bwd": "centerpoly_tpu_torch/csrc/dcn_bwd.cu",
-           "ida_upsample_add": "centerpoly_tpu_torch/csrc/upsample.cu"}
+           "ida_upsample_add": "centerpoly_tpu_torch/csrc/upsample.cu",
+           "warp_normalize": "centerpoly_tpu_torch/csrc/warp.cu"}
 # (C, f, input H, W) of DLA-34's 8 IDA up-samplers at 512x1024 input
 # (dla_up.ida_0.up_1, ida_1.up_1-2, ida_2.up_1-3, ida_up.up_1-2), each
 # one `ida_upsample_add` launch a no-grad forward on the card
@@ -658,12 +667,100 @@ def upsample_vs_plain():
             "f32_library_ms": f32["library_ms"], "f32_bound_ms": 2 * bound}
 
 
-def run_counted(fn, key, nodes=16):
+def warp_vs_plain():
+    """`warp_normalize` against its plain version (`warp_normalize_ref`:
+    a warp of each frame by two dense f32 sampling matrices, TF32 off,
+    then / 255, - mean, / std, cast) on UP_BATCH seeded 2048x1024 frames
+    onto the 512x1024 input, at the serving transform and at a
+    non-integer scale and shift: f32 within 1e-5 absolute (the same
+    products summed in another order, and PyTorch's / 255 by the
+    reciprocal); bf16 equal to the kernel's own f32 rounded once, and to
+    the plain bf16 wherever the two f32 values are equal; one launch a
+    call, two calls bit-equal.  Then the device ms a frame of the kernel
+    (bf16, CUDA graph replay) beside its bytes bound (the uint8 source rows
+    with a non-zero weight in, bf16 out),
+    the plain path's and its two f32 GEMMs' alone (CUDA events).  Returns
+    the kernels line's fields (`max_abs_err`: f32, against the plain f32
+    path)."""
+    import torch
+    from centerpoly_tpu_torch.configs import Config
+    from centerpoly_tpu_torch.geometry.affine import (_sampling_matrix,
+                                                      get_affine_transform)
+    from centerpoly_tpu_torch.kernels import warp
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config()
+    size = (cfg.input_h, cfg.input_w)
+    h, w = FRAME_HW
+    c = np.array([w / 2.0, h / 2.0], np.float32)
+    cases = {"serving": get_affine_transform(c, max(h, w), 0, size[::-1]),
+             "non-integer": get_affine_transform(c, max(h, w) * 0.83, 0,
+                                                 size[::-1],
+                                                 shift=(0.07, -0.05))}
+    frames = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 256, (UP_BATCH, h, w, 3), dtype=np.uint8)).cuda()
+    err = 0.0
+    for name, trans in cases.items():
+        args = (frames, trans, size, cfg.mean, cfg.std)
+        before = warp.launches
+        got = {dt: warp.warp_normalize(*args, dt)
+               for dt in (torch.float32, torch.bfloat16)}
+        again = warp.warp_normalize(*args, torch.bfloat16)
+        ref = {dt: warp.warp_normalize_ref(*args, dt) for dt in got}
+        torch.cuda.synchronize()
+        g32, g16 = got[torch.float32], got[torch.bfloat16]
+        r32, r16 = ref[torch.float32], ref[torch.bfloat16]
+        check(warp.launches == before + 3 and torch.equal(g16, again)
+              and all(t.is_contiguous(memory_format=torch.channels_last)
+                      for t in got.values()),
+              f"warp_normalize {name}: launches, layout or two calls")
+        d = (g32 - r32).abs().max().item()
+        check(d <= 1e-5, f"warp_normalize {name} f32 max_abs {d:.3e}")
+        same = g32 == r32
+        check(torch.equal(g16, g32.to(torch.bfloat16))
+              and torch.equal(g16[same], r16[same]),
+              f"warp_normalize {name} bf16: not one rounding of its f32")
+        err = max(err, d)
+        print(f"[warp] b{UP_BATCH} {name}: f32 max_abs {d:.3e} (tol 1e-5); "
+              f"bf16 differs from the plain bf16 at {int((g16 != r16).sum())}"
+              f" of {g16.numel()} values, f32 equal at "
+              f"{100 * same.float().mean().item():.2f} %")
+    trans = cases["serving"]
+    args = (frames, trans, size, cfg.mean, cfg.std, torch.bfloat16)
+    ms = graph_ms(lambda: warp.warp_normalize(*args), 20) / UP_BATCH
+    plain_ms = cuda_ms(lambda: warp.warp_normalize_ref(*args), 2,
+                       10) / UP_BATCH
+    t = torch.as_tensor(trans, dtype=torch.float32, device="cuda")
+    wy = _sampling_matrix(size[0], h, t[1, 1], t[1, 2])
+    wx = _sampling_matrix(size[1], w, t[0, 0], t[0, 2])
+    img = frames[0].float()
+    rows = (wy @ img.reshape(h, w * 3)).reshape(size[0], w, 3)
+    cols = rows.permute(0, 2, 1).reshape(size[0] * 3, w)
+    library_ms = (cuda_ms(lambda: wy @ img.reshape(h, w * 3), 2, 20)
+                  + cuda_ms(lambda: cols @ wx.T, 2, 20))
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    # the kernel fetches only the source rows with a non-zero weight (at
+    # the serving 2:1 transform every second tap weighs 0): those rows in,
+    # the bf16 input out
+    rows_read = int((wy != 0).any(0).sum())
+    n_bytes = rows_read * w * 3 + size[0] * size[1] * 3 * 2
+    bound = n_bytes / PEAK_BYTES * 1e3
+    print(f"[warp] a frame (bf16, batch {UP_BATCH}): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f}, its two f32 GEMMs {library_ms:.4f}, bound "
+          f"{bound:.4f} ({rows_read} of {h} source rows read: "
+          f"{n_bytes / 1e6:.2f} MB over 3.35 TB/s; {100 * bound / ms:.1f} %)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": "bytes"}
+
+
+def run_counted(fn, key, nodes=16, warps=1):
     """Run one forward with the launch counts zeroed just before and read
     just after: one `key` launch a DCN node of the net (DLA-34 16,
-    resdcn 3), none of another kind, and one `ida_upsample_add` launch an
-    up-sampler (DLA-34 8, resdcn none)."""
-    from centerpoly_tpu_torch.kernels import dcn, upsample
+    resdcn 3), none of another kind, one `ida_upsample_add` launch an
+    up-sampler (DLA-34 8, resdcn none) and `warps` `warp_normalize`
+    launches (1 a `run` or `run_batch` call, 0 a forward of a ready
+    input)."""
+    from centerpoly_tpu_torch.kernels import dcn, upsample, warp
     ups = 8 if nodes == 16 else 0
     zero_counts()
     out = fn()
@@ -672,6 +769,8 @@ def run_counted(fn, key, nodes=16):
           f"expected {nodes} {key} launches, got {counts}")
     check(upsample.launches == ups, f"expected {ups} ida_upsample_add "
           f"launches, got {upsample.launches}")
+    check(warp.launches == warps, f"expected {warps} warp_normalize "
+          f"launches, got {warp.launches}")
     return out, counts[key]
 
 
@@ -680,6 +779,7 @@ def phase_slice():
     from centerpoly_tpu_torch.configs import Config
     from centerpoly_tpu_torch.infer.detector import create_detector
     from centerpoly_tpu_torch.models import create_model
+    from centerpoly_tpu_torch.kernels import warp
     from centerpoly_tpu_torch.models.deform_conv import DCNv2
 
     cfg = Config(task="polydet", dataset="cityscapes", arch="dla_34")
@@ -715,8 +815,10 @@ def phase_slice():
             f"{k} {1e3 * ret[k]:.2f}" for k in
             ("tot", "load", "pre", "net", "dec", "post", "merge")))
     batch, n = run_counted(lambda: det.run_batch(frames), "rowband")
+    launches_warp = warp.launches
     check(len(batch) == 4, "run_batch returned the wrong count")
-    print(f"[slice] run_batch of 4: {n} launches (one batched forward)")
+    print(f"[slice] run_batch of 4: {n} launches (one batched forward), "
+          f"{launches_warp} warp_normalize")
 
     with torch.no_grad():
         trans, meta = det._scaled_trans(*FRAME_HW, 1.0)
@@ -757,7 +859,7 @@ def phase_slice():
           + " ".join(f"{o:.1f}" for o in offs))
     check_heads("slice", ref, got32, got16)
     return det, sd, frames, {"rowband": launches_rowband,
-                             "exact": launches_exact}
+                             "exact": launches_exact, "warp": launches_warp}
 
 
 def check_heads(tag, ref, got32, got16=None):
@@ -792,7 +894,7 @@ def phase_halo_slice(sd, frames, root):
     import torch
     from centerpoly_tpu_torch.configs import Config
     from centerpoly_tpu_torch.infer.detector import create_detector
-    from centerpoly_tpu_torch.kernels import dcn, upsample
+    from centerpoly_tpu_torch.kernels import dcn, upsample, warp
     from centerpoly_tpu_torch.tools import analyze_dcn_offsets
 
     cfg = Config(dcn_kernel=f"halo:{HALO_R}")
@@ -822,8 +924,10 @@ def phase_halo_slice(sd, frames, root):
     torch.backends.cudnn.deterministic = flags
     check(counts["halo"] == 16 * len(frames)
           and sum(counts.values()) == counts["halo"]
-          and upsample.launches == 8 * len(frames),
-          f"run_stream launches {counts}, {upsample.launches} up-sampler")
+          and upsample.launches == 8 * len(frames)
+          and warp.launches == len(frames),
+          f"run_stream launches {counts}, {upsample.launches} up-sampler, "
+          f"{warp.launches} warp_normalize")
     check(len(streamed) == len(frames), "run_stream dropped frames")
     for i, (got, ref) in enumerate(zip(streamed, runs)):
         check(set(got) == set(ref) and all(
@@ -1175,10 +1279,11 @@ def phase_bwd_vs_plain():
 
 
 def zero_counts():
-    from centerpoly_tpu_torch.kernels import dcn, upsample
+    from centerpoly_tpu_torch.kernels import dcn, upsample, warp
     for k in dcn.launches:
         dcn.launches[k] = 0
     upsample.launches = 0
+    warp.launches = 0
 
 
 def exp_id(arch, kernel):
@@ -1702,12 +1807,13 @@ def phase_train_times(trainers):
             print(f"[train-profile] {ms:8.3f} ms {n:4d} calls  {key[:90]}")
 
 
-def count_free(fn, label, ups=0):
+def count_free(fn, label, ups=0, warps=None):
     """Run one path of a net with no DCNv2 node with the launch counts
     zeroed just before and read just after: every DCN count must read 0,
     the `ida_upsample_add` count `ups` (8 a dlav0_34 forward, 0 on a net
-    without DLA's up-samplers)."""
-    from centerpoly_tpu_torch.kernels import dcn, upsample
+    without DLA's up-samplers), and the `warp_normalize` count `warps`
+    where given (1 a `run` or `run_batch` call)."""
+    from centerpoly_tpu_torch.kernels import dcn, upsample, warp
     zero_counts()
     out = fn()
     counts = {k: v for k, v in dcn.launches.items() if v}
@@ -1715,6 +1821,8 @@ def count_free(fn, label, ups=0):
           f"DCNv2 node")
     check(upsample.launches == ups, f"{label}: {upsample.launches} "
           f"ida_upsample_add launches, expected {ups}")
+    check(warps is None or warp.launches == warps, f"{label}: "
+          f"{warp.launches} warp_normalize launches, expected {warps}")
     return out
 
 
@@ -1802,17 +1910,18 @@ def phase_hourglass_infer(frames):
     torch.backends.cudnn.deterministic = True
     runs = []
     for i, frame in enumerate(frames):
-        ret = count_free(lambda: det.run(frame), "smallhourglass run")
+        ret = count_free(lambda: det.run(frame), "smallhourglass run",
+                         warps=1)
         runs.append(ret["results"])
         rows = np.concatenate([np.asarray(v) for v in ret["results"].values()])
         check(rows.shape == (cfg.K, 4 + 1 + 2 * cfg.nbr_points + 1)
               and np.isfinite(rows).all(), f"hourglass frame {i} results")
-    batch = count_free(lambda: det.run_batch(frames), "run_batch")
+    batch = count_free(lambda: det.run_batch(frames), "run_batch", warps=1)
     check(len(batch) == len(frames) and all(
         sum(len(v) for v in b["results"].values()) == cfg.K for b in batch),
         "run_batch results")
     streamed = count_free(lambda: list(det.run_stream(iter(frames), depth=2)),
-                          "run_stream")
+                          "run_stream", warps=len(frames))
     torch.backends.cudnn.deterministic = flags
     check(len(streamed) == len(frames) and all(
         np.array_equal(np.asarray(got[j]), np.asarray(ref[j]))
@@ -1971,7 +2080,7 @@ def heads_vs_cpu(arch, sd, frame, nodes):
         if nodes:
             got, _ = run_counted(lambda: det._heads(
                 x.to("cuda", memory_format=torch.channels_last)), "exact",
-                nodes)
+                nodes, warps=0)
         else:
             got = count_free(lambda: det._heads(
                 x.to("cuda", memory_format=torch.channels_last)), arch,
@@ -4611,6 +4720,7 @@ def main() -> int:
         phase_bwd_times(check_plain=False)
         return 0
     errs, up = phase_kernel_vs_plain()
+    warp_fields = warp_vs_plain()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         det, sd, frames, launches = phase_slice()
         det_halo, launches["halo"] = phase_halo_slice(sd, frames, root)
@@ -4737,6 +4847,13 @@ def main() -> int:
     kernels.append({"name": "ida_upsample_add", "route": "cuda",
                     "source": SOURCES["ida_upsample_add"], "replaces": None,
                     "launches": 8, **up})
+    # the serving input warp (no TPU kernel: two XLA matmuls by dense
+    # sampling matrices in the JAX package): a frame of UP_BATCH 2048x1024
+    # frames; launches of phase 4's run_batch of 4 (one a call, checked in
+    # every run and run_batch of run_counted and the halo run_stream)
+    kernels.append({"name": "warp_normalize", "route": "cuda",
+                    "source": SOURCES["warp_normalize"], "replaces": None,
+                    "launches": launches["warp"], **warp_fields})
     stop_helper_processes()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
